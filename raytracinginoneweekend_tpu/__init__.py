@@ -1,12 +1,13 @@
-"""raytracinginoneweekend_tpu: a TPU-native differentiable path tracer.
+"""raytracinginoneweekend_tpu: a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 Alabuta/RaytracingInOneWeekend (C++20 + CUDA/Thrust): the full Ray Tracing
 in One Weekend pipeline -- thin-lens camera, brute-force ray/sphere
 intersection, lambert/metal/dielectric scatter, iterative bounce integrator,
 gamma + PPM/PNG output -- rebuilt as a regenerative wavefront renderer over
-planar SoA ray state, differentiable end-to-end, and sharded across TPU
-meshes. See ARCHITECTURE.md for the design and measurements.
+planar SoA ray state, differentiable end-to-end, and sharded across device
+meshes. See README.md ("Design") for the design and PERF.md for the
+measurements.
 
 Public API (the "everything a reference user needs" set):
   Scenes:        Scene, simple_scene_cuda, simple_scene_cpu, huge_scene,

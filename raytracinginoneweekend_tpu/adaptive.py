@@ -4,7 +4,7 @@ The reference renders a fixed spp everywhere (main.cxx:23,
 cuda_impl.cu:59). Monte-Carlo noise is wildly non-uniform across the
 image (defocus edges, glass, silhouettes), so a fixed budget wastes most
 of its samples on already-converged pixels. This module adds the classic
-two-stage scheme, shaped for TPU static shapes:
+two-stage scheme, shaped for static shapes under jit:
 
   Stage 1  render every pixel twice at spp_base/2 (sample-id halves
            [0, h) and [h, spp_base) -- the RNG contract keys on

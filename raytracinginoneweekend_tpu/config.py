@@ -4,7 +4,7 @@ The reference has no runtime config at all -- resolution, spp and bounce
 budgets are compile-time constants (main.cxx:22-37, cuda_impl.cu:59-60,
 raytracer.hxx:20; SURVEY #25). Here the equivalents are explicit, hashable
 dataclasses passed as *static* jit arguments, so each configuration traces
-to its own specialized XLA program (the TPU analogue of the reference's
+to its own specialized XLA program (the analogue of the reference's
 template/constexpr specialization).
 
 ``TraceOptions`` also carries the quirk-compat switches (SURVEY section 7
@@ -16,29 +16,24 @@ from __future__ import annotations
 
 import dataclasses
 
+# Default lanes in flight per device for the forward wavefront engine;
+# the best of 2^15 .. 2^18 on the H100's flagship frame (PERF.md).
+POOL_SIZE = 1 << 17
+
 
 @dataclasses.dataclass(frozen=True)
 class TraceOptions:
     """Semantics switches for the integrator (all static).
 
-    SUPPORTED-COMBINATION MATRIX (the one place; engine guards raise on
-    the unsupported cells):
+    Which engines read which switches:
 
-      mega:        "fused" (default) | "off" | "bounce"
-      rr_terminate: fused ok | off ok | bounce RAISES (ablation kernel)
-      hit_kernel:  "sorted"/"mxu" apply under fused/off; under "bounce"
-                   "sorted" RAISES and "mxu" is ignored (the megakernel
-                   does its own intersect)
-      ownership:   "tile" requires mega in (fused, off); RAISES on bounce
-      dual-pool engine (ops/wavefront_dual.py): rr_terminate supported
-                   (same draws as the single pool, images agree to
-                   accumulation order); ownership/hit_kernel="sorted"
-                   are ignored (it has its own cone-cull list path)
-      deposit:     "ledger"/"scatter" valid for every combination above
+      wavefront engine (ops/wavefront.py): every switch except gather and
+                   sphere_block; ownership changes the task->lane mapping
+                   only (images are bit-identical).
       planar AD engines (integrate_planar.render_pixels_planar and the
                    regenerative ops/wavefront_ad.py): honor rr_terminate
                    with the SAME (TAG_BOUNCE + b, counter 2) draw as the
-                   forward engines; survival q and the 1/q boost are
+                   forward engine; survival q and the 1/q boost are
                    stop-gradiented, so gradients are RR applied to the
                    gradient integrand (unbiased; FD-validated in
                    tests/test_wavefront_ad.py). In the regenerative
@@ -46,11 +41,8 @@ class TraceOptions:
                    saving is real forward AND backward; the fixed-depth
                    scan implements it for estimator parity only (fixed
                    trip count -- no time saved).
-      tiled AD engine (render.render_pixels / ops/integrate.trace): uses
-                   options.intersect + gather only; the wavefront-only
-                   switches (mega, hit_kernel, ownership, rr_*) are
-                   ignored there -- it keeps the reference-faithful
-                   estimator.
+      tiled AD engine (render.render_pixels / ops/integrate.trace): reads
+                   gather and sphere_block; ownership does not apply.
     """
 
     # Minimum hit distance epsilon (raytracer.hxx:98; cuda_impl.cu:176).
@@ -67,57 +59,11 @@ class TraceOptions:
     refract: str = "physical"
     # Sphere-block size for the streamed closest-hit reduction.
     sphere_block: int = 512
-    # Closest-hit implementation for forward-only traces: "jnp" (XLA-fused
-    # broadcast+argmin) or "pallas" (fused VMEM kernel,
-    # ops/pallas_intersect.py). The differentiable integrator always uses
-    # "jnp" (the Pallas kernel is forward-only).
-    intersect: str = "jnp"
-    # Per-ray sphere/material parameter fetch in the jnp integrator:
-    # "onehot" = exact one-hot matmul on the MXU (differentiable; its
-    # transpose is another matmul), "take" = plain index gathers
-    # (measured ~80ns/element on v5e -- serialized).
+    # Per-ray sphere/material parameter fetch in the tiled integrator:
+    # "onehot" = exact one-hot matmul at HIGHEST precision
+    # (differentiable; its transpose is another matmul), "take" = plain
+    # index gathers.
     gather: str = "onehot"
-    # Wavefront engine fusion level (all three measured on v5e, see
-    # ARCHITECTURE.md):
-    #   "fused"  = closest-hit kernel + XLA MXU one-hot resolve + ONE
-    #              shade/state/regen Pallas program (ops/pallas_fused.py,
-    #              rotated loop body);
-    #   "bounce" = whole bounce incl. in-kernel param resolve in one
-    #              Pallas program (ops/pallas_mega.py; measured -6%: the
-    #              per-row resolve matmuls serialize against the VPU);
-    #   "off"    = closest-hit kernel with XLA fusions around it.
-    mega: str = "fused"
-    # Closest-hit kernel LAYOUT in the wavefront engines (all Pallas,
-    # ops/pallas_segment.py): "sublane" = rays on (rows,128) planes,
-    # per-sphere SMEM scalar loop (the round-1/2 kernel); "mxu" =
-    # sphere-MINOR layout (rays on sublanes, spheres on lanes) with the
-    # two per-candidate dot products as small MXU matmuls (same
-    # semantics up to f32 rounding on knife-edge candidates -- the dots
-    # are algebraically regrouped); "sorted" = the sublane loop in
-    # per-block distance order with whole-block early exit (the TPU
-    # analogue of the reference's shrinking t_max, cuda_impl.cu:183-188
-    # -- exact: conservative bounds, identical winners up to argmin
-    # ties between exactly-equal f32 t).
-    hit_kernel: str = "sublane"
-    # hit_kernel="sorted" tuning: kernel block rows for the closest-hit
-    # call only (0 = the engine's block rows; smaller blocks sharpen the
-    # whole-block exit consensus at ~1us/program more grid overhead),
-    # and the exit-check ladder: 8-sphere-chunk checkpoints at which the
-    # staged loop may stop (() = never check -- the pure-overhead
-    # ablation).
-    sorted_rows: int = 0
-    sorted_ladder: tuple = (4,)  # measured best on v5e (ARCHITECTURE.md)
-    # Winning-sphere parameter resolve in the fused wavefront path:
-    # "onehot" = one (N, S) bf16 one-hot MXU matmul (default); "split" =
-    # factorized lo-matmul + hi-select (pallas_segment.
-    # resolve_params_split; bit-exact); "f32" = the one-hot kept in f32
-    # (drops the pred->bf16 convert; bit-exact). Measured (v5e,
-    # ARCHITECTURE.md "Resolve phase closure"): split LOSES in-engine
-    # (53.1 vs 58.2 Mrays/s -- the (N, hi*16) intermediate materializes
-    # ~16 MB/iter), f32 is noise-level (1.0009x); the resolve cost is
-    # ~73% one-hot CONSTRUCTION at the VPU compare floor, so both stay
-    # documented ablations.
-    resolve: str = "onehot"
     # Pixel-jitter sampling: "iid" (reference-faithful, the parity
     # default) or "stratified" (opt-in estimator change: the TAG_JITTER
     # words are remapped so u is exactly stratified over the spp strata
@@ -129,21 +75,18 @@ class TraceOptions:
     # and to the FIRST-BOUNCE scatter pair (rng.strat0_scatter /
     # planar.strat0_scatter_planes; rotations at (pid,0) TAG_BOUNCE+0
     # j=3). Measured variance vs iid at 16 spp: 0.39x pinhole, 0.63x
-    # cover, 0.44x wide-aperture, at a 5.4% TPU headline cost
-    # (docs/STRAT_FULL_r04.json). Deeper bounces and the "cpu" quirk
-    # lens stay iid; mega="bounce" cannot honor the bounce-0 half and
-    # refuses the combination.
+    # cover, 0.44x wide-aperture. Deeper bounces and the "cpu" quirk
+    # lens stay iid.
     sampling: str = "iid"
     # Wavefront task OWNERSHIP layout:
     #   "strided" = lane l owns global tasks l, l+P, ... (row-major
     #     pixels): perfect load balance, but a kernel block's in-flight
     #     rays span a full-width image row -- no origin coherence.
     #   "tile" = tasks run over a 32x32-pixel tile swizzle and each
-    #     closest-hit kernel BLOCK owns a contiguous tile-order range
+    #     block of 8192 lanes owns a contiguous tile-order range
     #     (strided within the block): a block's rays form a compact
-    #     frustum beam all frame (what hit_kernel="sorted" needs to
-    #     fire), traded against block-level drain imbalance (cheap:
-    #     drained blocks skip both Pallas kernels).
+    #     frustum beam all frame, traded against block-level drain
+    #     imbalance.
     ownership: str = "strided"
     # Russian-roulette PATH TERMINATION in the wavefront engines and the
     # planar AD engines (opt-in ESTIMATOR change; the reference never
@@ -160,12 +103,9 @@ class TraceOptions:
     rr_qmin: float = 0.05
     # Survival probability q = clip(rr_scale * max-channel(attenuation),
     # rr_qmin, 1): rr_scale > 1 kills less aggressively -- smaller speed
-    # gain, much smaller variance inflation. The default (3, 4.0) is
-    # tuned for VARIANCE x TIME efficiency, not raw rays/s: measured
-    # eff 1.27x vs rr-off at +1.2% variance, where the raw-speed-optimal
-    # (1, scale 1) reaches 79.8 Mrays/s but at 2.97x variance --
-    # eff 0.41, a net LOSS (ARCHITECTURE.md "Russian-roulette",
-    # docs/RR_EFFICIENCY_r03.jsonl).
+    # gain, much smaller variance inflation. The default (3, 4.0) keeps
+    # the variance within ~1% of rr-off; the aggressive (1, scale 1)
+    # kills more paths but triples the variance.
     rr_scale: float = 4.0
 
     def __post_init__(self):
@@ -182,11 +122,7 @@ class TraceOptions:
         _choice("scatter_sample", self.scatter_sample, ("unit", "ball"))
         _choice("sky", self.sky, ("cuda", "cpu"))
         _choice("refract", self.refract, ("physical", "reference"))
-        _choice("intersect", self.intersect, ("jnp", "pallas"))
-        _choice("mega", self.mega, ("off", "bounce", "fused"))
-        _choice("hit_kernel", self.hit_kernel, ("sublane", "mxu", "sorted"))
         _choice("gather", self.gather, ("onehot", "take"))
-        _choice("resolve", self.resolve, ("onehot", "split", "f32"))
         _choice("ownership", self.ownership, ("strided", "tile"))
         _choice("sampling", self.sampling, ("iid", "stratified"))
         if not (self.rr_start >= 1 and 0.0 < self.rr_qmin <= 1.0
@@ -194,23 +130,6 @@ class TraceOptions:
             raise ValueError(
                 f"bad rr knobs: rr_start={self.rr_start} "
                 f"rr_qmin={self.rr_qmin} rr_scale={self.rr_scale}")
-        if self.sorted_rows < 0 or not all(
-                int(c) > 0 for c in self.sorted_ladder):
-            raise ValueError(
-                f"bad sorted knobs: sorted_rows={self.sorted_rows} "
-                f"sorted_ladder={self.sorted_ladder}")
-        if self.sampling == "stratified" and self.mega == "bounce":
-            # The whole-bounce ablation kernel's state carries no
-            # task/sid planes, so it cannot honor the first-bounce half
-            # of the stratified estimator (planar.strat0_scatter_planes)
-            # -- refusing beats silently rendering a different image
-            # than every other engine. (Same carve-out class as the
-            # kernel's other exclusions; ARCHITECTURE.md.)
-            raise ValueError(
-                "sampling='stratified' is not supported with "
-                "mega='bounce' (the whole-bounce ablation kernel has no "
-                "task/sid state for the first-bounce stratification); "
-                "use mega='fused' or 'off'")
 
 
 # The semantics of the reference's ACTIVE renderer (the CUDA path).

@@ -3,7 +3,7 @@
 The reference stores the scene as ``std::vector<sphere>`` +
 ``std::vector<material::types>`` (raytracer.hxx:18-30) with materials as a
 tagged union dispatched by ``std::visit`` / a custom device variant
-(material.hxx:41-51, SURVEY #12). On TPU the scene is a *pytree of SoA
+(material.hxx:41-51, SURVEY #12). Here the scene is a *pytree of SoA
 device arrays* -- these arrays ARE the differentiable parameters for inverse
 rendering:
 
@@ -182,17 +182,11 @@ def wall_scene(seed: int = 0, n: int = 22, radius: float = 0.5,
                spacing: float = 1.0) -> Scene:
     """A DEPTH-BOUNDED workload: an n x n sphere wall in the x-y plane.
 
-    The huge scene's beams have unbounded depth spread (open ground
-    plane seen nearly edge-on), which is the measured structural reason
-    the exact work-reduction family (hit_kernel="sorted" +
-    ownership="tile") recovers ~nothing there (ARCHITECTURE.md, the
-    sorted-exit ablation). This scene is the workload that family was
-    built for -- a close-up of a dense wall: every primary hit lands in
-    a narrow distance band, a tile-owned kernel block sees only its own
-    wall patch, and the distance-sorted suffix bound can prove the rest
-    of the scene unreachable. No reference counterpart (the reference
-    ships two scenes, main.cxx:120-177); this is a benchmark scene for
-    the TPU engine's coherence machinery (scripts/bench_wall.py).
+    Unlike the huge scene (an open ground plane seen nearly edge-on, so
+    beams have unbounded depth spread), a close-up of this dense wall
+    puts every primary hit in a narrow distance band: the workload for
+    coherence and early-exit work reduction. No reference counterpart
+    (the reference ships two scenes, main.cxx:120-177).
 
     n*n spheres of the given radius on a spacing grid centered on the
     x axis (x in +-(n-1)/2*spacing, y from radius up), z = 0; ~80%

@@ -1,6 +1,6 @@
 """Native (C++) runtime tier, loaded via ctypes.
 
-The reference is 100% native (C++20/CUDA); the TPU build keeps its compute
+The reference is 100% native (C++20/CUDA); this build keeps its compute
 path in XLA/Pallas (that IS the native tier for device code) and implements
 the host-side runtime pieces -- gamma/quantize and image encoding (SURVEY
 #22/#23) -- in C++ (native/imagecodec.cpp), with the pure-Python writers in

@@ -1,6 +1,6 @@
 // Native image-output tier: gamma/quantize + PPM/PNG encoders.
 //
-// TPU-native re-expression of the reference's all-native app layer:
+// Re-expression of the reference's all-native app layer:
 //   - gamma 1/2.2 + *255 u8 quantization (SURVEY #22: app::gamma_correction
 //     + normalize_rgb_to_8bit, main.cxx:39-45/77-85; cuda::rgb32_to_rgb8,
 //     cuda_impl.cu:85-99). The reference casts WITHOUT clamping (UB on

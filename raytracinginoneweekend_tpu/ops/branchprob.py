@@ -129,7 +129,7 @@ reproducer configs:
     -0.065 +- 0.038 at 16 keys vs FD truth +0.003 -- the r4 "+0.031"
     was a 3-key mean of an estimator with ~0.15 per-key SE; was +0.13
     detached-r3): the two remaining channels, measured per-family on
-    the reproducer (ARCHITECTURE.md "Chain-sweep bias decomposition"):
+    the reproducer:
     (a) through-lens lanes whose exit-cone dg/dtheta is lens-MAGNIFIED
     (|dg| 5-27 at g in [-0.56, -0.11]) -- sparse in g, so kernel mass
     rarely lands on them; attacked in round 5 with exit-cone re-jitter
@@ -145,8 +145,8 @@ reproducer configs:
   * GLASS-RIM / SWEEP OVERLAP -- RESOLVED (round 5): the round-4
     suspicion of a partial rim-band double count when BOTH rr_grad and
     boundary_samples are on (a noise-limited 0.39 +- 0.18 SE claim) was
-    decided by the CRN-paired ownership study (scripts/rim_ownership.py
-    -> docs/RIM_OWNERSHIP_r05.json, final run 96 keys): on the rim
+    decided by the CRN-paired ownership study
+    (docs/RIM_OWNERSHIP_r05.json, final run 96 keys): on the rim
     reproducer interior AD is 0, the boundary term is +0.125 +- 0.005
     (~= FD truth 0.114 alone), and the delta-lobe pair largely CANCELS
     (rr +0.54 / sweep -0.40); ceding the rim band leaves the total
@@ -155,10 +155,9 @@ reproducer configs:
     the Schlick/TIR branch mass and must always run TOGETHER, ungated
     (raytracer.hxx:179-191). The pair's imperfect cancellation on this
     all-rim-band adversarial frame was then bounded by a three-step
-    elimination (ARCHITECTURE.md): flat in BOTH smoothing bandwidths
-    (docs/RIM_BANDWIDTH_r05.json), bit-flat in probe_delta_diel, and
-    BRACKETING the ~0 truth across vertex-depth coverage
-    (docs/RIM_DEPTH_r05.json: vd0-only +0.110 +- 0.040, designed
+    elimination: flat in BOTH smoothing bandwidths, bit-flat in
+    probe_delta_diel, and BRACKETING the ~0 truth across vertex-depth
+    coverage (vd0-only +0.110 +- 0.040, designed
     depth-0..1 sum -0.133 +- 0.041, the internal interface's channel
     alone ~ -0.24). Honest bound: the per-interface channels are
     individually large here and their sum misses the small truth by
@@ -277,8 +276,7 @@ def branch_probability_surrogate(scene: Scene, cam: Camera,
         property of the edge, locally constant along it). The M draws
         average to the same expectation over the pixel's jitter measure
         -- an M-fold variance cut on exactly the kernel factor whose
-        undersampling drives the magnified-exit-cone residual
-        (ARCHITECTURE.md "Chain-sweep bias decomposition"). Side-chain
+        undersampling drives the magnified-exit-cone residual. Side-chain
         RR arms keep the single-sample kernel. Measured on the
         mirror-chain reproducer: docs/CHAIN_SWEEP_r05.json.
       boundary_rim_frac: ABLATION ONLY -- a float drops vertex_depth-0
@@ -287,13 +285,13 @@ def branch_probability_surrogate(scene: Scene, cam: Camera,
         "grazing-entry ownership gate" hypothesis (the camera boundary
         term's deep probe owns that band, so the sweep should cede it)
         was REFUTED by the CRN-paired ownership study
-        (docs/RIM_OWNERSHIP_r05.json, 48 keys, scripts/rim_ownership.py):
+        (docs/RIM_OWNERSHIP_r05.json, 48 keys):
         on the rim reproducer the band's sweep mass (-0.42 +- 0.03) is a
         canceling pair with the RR term (+0.49 +- 0.03) -- gating it
         leaves the total 17 SE above FD truth while the ungated total
         matches within 2 SE. Production callers (render_loss) always
         pass None (no gate); the unconditional r4 gate additionally
-        collapsed rr_grad-only glass-ior gradients (VERDICT r4 #1).
+        collapsed rr_grad-only glass-ior gradients.
       _detach_prefix: ablation switch for tests -- walk the prefix on
         the detached scene (the round-3 behavior), dropping the
         prefix-motion channel of dp/dtheta.
@@ -432,7 +430,7 @@ def branch_probability_surrogate(scene: Scene, cam: Camera,
     # (impact parameter within boundary_rim_frac of the radius,
     # |cos| < sqrt(1 - (1 - frac)^2)), so the sweep should cede those
     # lanes -- was decided AGAINST by the CRN-paired ownership study
-    # (scripts/rim_ownership.py -> docs/RIM_OWNERSHIP_r05.json, 48 keys
+    # (docs/RIM_OWNERSHIP_r05.json, 48 keys
     # with gated/ungated sharing every probe key): on the rim-zoom
     # reproducer the band's sweep mass is -0.42 +- 0.03 against the RR
     # term's +0.49 +- 0.03 -- a canceling PAIR, not a double count of
@@ -442,7 +440,7 @@ def branch_probability_surrogate(scene: Scene, cam: Camera,
     # Production callers never gate (inverse.py passes None); the knob
     # remains for the reproducer test and future ownership studies. The
     # unconditional r4 gate also collapsed rr_grad-only glass-ior
-    # gradients to 58% of FD (VERDICT r4 weak #1).
+    # gradients to 58% of FD.
     if vertex_depth == 0 and boundary_rim_frac is not None:
         grazing_cos = (1.0 - (1.0 - boundary_rim_frac) ** 2) ** 0.5
         active_delta = active_delta & (
@@ -657,7 +655,7 @@ def branch_probability_surrogate(scene: Scene, cam: Camera,
         # probe_delta-deep probe reads "no jump" across an edge whose
         # true step (the lensed image of whatever lies behind the glass)
         # sits a few hundredths of a radian further in. Measured on the
-        # mirror->glass->occluder reproducer (ARCHITECTURE.md): f just
+        # mirror->glass->occluder reproducer: f just
         # inside the rim = 2.43 (sky) at 0.002, 0.0 (occluder) by 0.04;
         # the deep probe captures the rim family's true -176 raw-dI mass
         # at -217/-173 where the shallow probe claimed ~0. Non-delta

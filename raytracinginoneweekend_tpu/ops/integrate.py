@@ -72,22 +72,9 @@ def background_color(direction, options: TraceOptions):
 
 
 
-def closest_hit_opt(origin, direction, scene: Scene, options: TraceOptions,
-                    allow_pallas: bool):
-    """Dispatch closest-hit. The custom-VJP wrapper (analytic O(N)
-    backward via implicit differentiation of the winning sphere's
-    quadratic) serves BOTH the forward-only and reverse-mode paths, so
-    options.intersect == "pallas" may select the fused kernel even under
-    AD. ``allow_pallas`` is kept for callers that must stay on the jnp
-    forward (e.g. comparing the two implementations)."""
-    use_pallas = allow_pallas and options.intersect == "pallas"
-    return closest_hit_diff(origin, direction, scene.centers, scene.radii,
-                            options.t_min, options.sphere_block, use_pallas)
-
-
 def _bounce_step(scene: Scene, options: TraceOptions, state, bounce,
-                 allow_pallas: bool = False, return_hit: bool = False,
-                 strat0=None, rr_qcap: float = 1.0):
+                 return_hit: bool = False, strat0=None,
+                 rr_qcap: float = 1.0):
     """One wavefront bounce. ``bounce`` may be a traced scalar.
 
     strat0: optional (N, 3) replacement scatter vectors substituted at
@@ -102,15 +89,16 @@ def _bounce_step(scene: Scene, options: TraceOptions, state, bounce,
     """
     origin, direction, atten, result, alive, ray_keys = state
 
-    t, idx, hit = closest_hit_opt(origin, direction, scene, options,
-                                  allow_pallas)
+    t, idx, hit = closest_hit_diff(origin, direction, scene.centers,
+                                   scene.radii, options.t_min,
+                                   options.sphere_block)
 
     if options.gather == "onehot":
         # Per-SPHERE table (differentiable: built from the scene leaves
         # with only (S,)-sized gathers), then an exact one-hot matmul per
-        # ray on the MXU -- per-ray index gathers measured ~80ns/element
-        # on v5e, while the matmul transpose (the gradient) is another
-        # matmul. One nonzero per row keeps it bit-exact.
+        # ray; its transpose (the gradient) is another matmul. One
+        # nonzero per row and HIGHEST precision keep it bit-exact (an
+        # f32 product may otherwise run in TF32 on the GPU).
         mi_s = scene.material_index
         alb_s = scene.albedo[mi_s]
         table = jnp.concatenate([
@@ -123,7 +111,8 @@ def _bounce_step(scene: Scene, options: TraceOptions, state, bounce,
         ], axis=1)  # (S, 10)
         oh = (idx[:, None] == jnp.arange(scene.num_spheres)[None, :]
               ).astype(jnp.float32)
-        params = jnp.dot(oh, table, preferred_element_type=jnp.float32)
+        params = jnp.dot(oh, table, precision=jax.lax.Precision.HIGHEST,
+                         preferred_element_type=jnp.float32)
         c_hit = params[:, 0:3]
         r_hit = params[:, 3]
         mtype = params[:, 4].astype(jnp.int32)
@@ -165,14 +154,13 @@ def _bounce_step(scene: Scene, options: TraceOptions, state, bounce,
 
     keep = scatter_now
     if options.rr_terminate:
-        # RR path termination (round 5: the tiled engine now honors the
-        # shared contract too -- same draw words and update order as the
-        # planar AD scan, integrate_planar.py:353-363, so the engines
-        # stay bit-compatible). Beyond estimator parity this is what
-        # makes trace_fast's any-alive exit fire on deep probe batches:
-        # the boundary/delta-lobe surrogates' probe traces at depth 50
-        # otherwise always carry one live lane to the end
-        # (docs/FIT_r05.json full-surrogate phases).
+        # RR path termination: the shared contract -- same draw words
+        # and update order as the planar AD scan (integrate_planar.py),
+        # so the engines stay bit-compatible. Beyond estimator parity
+        # this is what makes trace_fast's any-alive exit fire on deep
+        # probe batches: the boundary/delta-lobe surrogates' probe
+        # traces at depth 50 otherwise always carry one live lane to
+        # the end.
         k0w, k1w = tf.key_words(ray_keys)
         ax, ay, az, keep = rng.rr_terminate_update(
             k0w, k1w, jnp.asarray(bounce, jnp.int32),
@@ -205,7 +193,7 @@ def trace(scene: Scene, origins, directions, ray_keys, max_depth: int,
 
     `lax.scan` over bounces with per-step rematerialization
     (jax.checkpoint): backward pass memory stays O(N) instead of
-    O(N * max_depth) -- the standard TPU trade of HBM for recomputed FLOPs.
+    O(N * max_depth) -- device memory traded for recomputed FLOPs.
     """
     step = functools.partial(_bounce_step, scene, options,
                              strat0=strat0)
@@ -229,8 +217,7 @@ def trace_fast(scene: Scene, origins, directions, ray_keys, max_depth: int,
     see rng.rr_terminate_update.
     """
     step = functools.partial(_bounce_step, scene, options,
-                             allow_pallas=True, strat0=strat0,
-                             rr_qcap=rr_qcap)
+                             strat0=strat0, rr_qcap=rr_qcap)
 
     def cond(carry):
         bounce, state = carry

@@ -1,22 +1,21 @@
 """Planar (R, 128) differentiable integrator: the fast AD engine.
 
-The tiled AD path (ops/integrate.trace over (N, 3) arrays) pays the
-(N, 3)-layout taxes the forward wavefront engine was built to avoid --
-strided component extraction and XLA's appetite for per-ray gathers
-(ops/wavefront.py's measured numbers). This module is the wavefront
-engine's PLANAR formulation made reverse-mode differentiable:
+The tiled AD path (ops/integrate.trace over (N, 3) arrays) works on
+(N, 3) arrays with strided component extraction. This module is the
+wavefront engine's PLANAR formulation made reverse-mode differentiable:
 
   * ray state is (R, 128) planes end to end (camera generation included,
     ops/planar.py);
-  * closest-hit runs the forward-only Pallas megakernel
-    (ops/pallas_segment.segment_closest_hit) wrapped in a custom VJP whose
+  * closest-hit runs the forward-only ops/pallas_segment.closest_hit
+    (the Triton kernel on the GPU) wrapped in a custom VJP whose
     backward pass is the same analytic implicit-function formula as
     ops/intersect.closest_hit_diff -- O(N) elementwise plus one
-    scatter-add, no (N, S) transpose, and the non-differentiable kernel
-    becomes legal under reverse-mode AD;
+    one-hot product, no (N, S) candidate transpose, and the
+    non-differentiable kernel becomes legal under reverse-mode AD;
   * per-ray sphere/material parameters come from ONE one-hot matmul
-    against a differentiable (S, 10) table (exact gather on the MXU; its
-    transpose -- the table gradient -- is another matmul);
+    against a differentiable (S, 10) table at HIGHEST precision (an
+    exact gather; its transpose -- the table gradient -- is another
+    matmul);
   * the scatter/material math is the wavefront segment's planar code with
     AD-safe double-where guards (sqrt/normalize never see values whose
     backward would be inf on masked lanes);
@@ -45,9 +44,11 @@ from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import DIELECTRIC, METAL, Scene
 from . import planar, rng
-from .pallas_segment import segment_closest_hit
+from .pallas_segment import BLOCK, closest_hit
 
 LANES = 128
+# Planar layouts are padded to whole kernel blocks of rows.
+ROW_MULTIPLE = max(1, BLOCK // LANES)
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)  # main.cxx:49; cuda_impl.cu:125
 
@@ -56,38 +57,40 @@ SKY_BLUE = (0.5, 0.7, 1.0)  # main.cxx:49; cuda_impl.cu:125
 # Planar closest hit with analytic backward (custom VJP around the kernel)
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def closest_hit_planar(rays, geom, t_min, rows):
-    """Closest hit over planar rays via the Pallas megakernel.
+_HI = jax.lax.Precision.HIGHEST
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
+def closest_hit_planar(rays, geom, t_min):
+    """Differentiable closest hit over planar rays.
 
     Args:
       rays: 6-tuple of (R, 128) f32 planes (ox oy oz dx dy dz).
       geom: (centers (S, 3), radii (S,)) -- the differentiable leaves.
-      t_min, rows: static.
+      t_min: static.
     Returns (t, sphere_idx, hit_i): (R, 128) planes (f32, i32, i32).
 
     Backward: implicit differentiation of the winning sphere's quadratic
     F = |o + t d - c|^2 - r^2 = 0 (see ops/intersect.closest_hit_diff) --
     dt = [(p-c).dc + r dr - (p-c).do - t (p-c).dd] / ((p-c).d).
     """
-    return _chp_fwd_impl(rays, geom, t_min, rows)
+    return _chp_fwd_impl(rays, geom, t_min)
 
 
-def _chp_fwd_impl(rays, geom, t_min, rows):
+def _chp_fwd_impl(rays, geom, t_min):
     centers, radii = geom
-    hit_i, t, sb = segment_closest_hit(
-        rays, centers[:, 0], centers[:, 1], centers[:, 2], radii, t_min,
-        rows=rows)
+    hit_i, t, sb = closest_hit(
+        rays, centers[:, 0], centers[:, 1], centers[:, 2], radii, t_min)
     return t, sb, hit_i
 
 
-def _chp_fwd(rays, geom, t_min, rows):
-    out = _chp_fwd_impl(rays, geom, t_min, rows)
+def _chp_fwd(rays, geom, t_min):
+    out = _chp_fwd_impl(rays, geom, t_min)
     t, sb, hit_i = out
     return out, (rays, geom, t, sb, hit_i)
 
 
-def _chp_bwd(t_min, rows, res, g):
+def _chp_bwd(t_min, res, g):
     rays, (centers, radii), t, sb, hit_i = res
     g_t = g[0]  # idx/hit are integer outputs: zero cotangent
     ox, oy, oz, dx, dy, dz = rays
@@ -95,11 +98,11 @@ def _chp_bwd(t_min, rows, res, g):
     s = centers.shape[0]
     r_total = ox.shape[0]
 
-    # Winning sphere's center/radius: exact one-hot gather on the MXU.
+    # Winning sphere's center/radius: exact one-hot gather.
     oh = (sb.reshape(-1, 1) == jnp.arange(s, dtype=sb.dtype)[None, :]
-          ).astype(jnp.bfloat16)
+          ).astype(jnp.float32)
     ctab = jnp.concatenate([centers, radii[:, None]], axis=1)  # (S, 4)
-    p4 = jnp.dot(oh, ctab.astype(jnp.float32),
+    p4 = jnp.dot(oh, ctab.astype(jnp.float32), precision=_HI,
                  preferred_element_type=jnp.float32)
 
     def col(i):
@@ -118,14 +121,13 @@ def _chp_bwd(t_min, rows, res, g):
 
     gcx, gcy, gcz = scale * pcx, scale * pcy, scale * pcz  # dt/dc rows
     g_r_rows = scale * rh  # dt/dr = r/denom
-    # Per-sphere accumulation as a transpose one-hot matmul on the MXU
-    # (reusing oh). Scatter-adds here were the train step's dominant cost
-    # (profiled 0.29 ms x2 per bounce = 62% of the whole step at 32k
-    # rays); the matmul does the same masked sum -- rows with scale = 0
+    # Per-sphere accumulation as a transposed one-hot matmul (reusing
+    # oh): the same masked sum as a scatter-add -- rows with scale = 0
     # (no hit / grazing) contribute nothing regardless of their sb.
     g4 = jnp.stack([gcx.reshape(-1), gcy.reshape(-1), gcz.reshape(-1),
                     g_r_rows.reshape(-1)], axis=-1)  # (N, 4)
-    acc = jnp.dot(oh.T, g4, preferred_element_type=jnp.float32)  # (S, 4)
+    acc = jnp.dot(oh.T, g4, precision=_HI,
+                  preferred_element_type=jnp.float32)  # (S, 4)
     g_centers = acc[:, :3]
     g_radii = acc[:, 3]
     g_rays = (-gcx, -gcy, -gcz,
@@ -157,20 +159,19 @@ def _material_table(scene: Scene):
 
 @jax.custom_vjp
 def _onehot_gather(sb_flat, table):
-    """params[i] = table[sb_flat[i]] via an exact bf16 one-hot matmul.
+    """params[i] = table[sb_flat[i]] via an exact one-hot matmul.
 
-    Plain AD of the one-hot matmul dominated the train step (profiled
-    62% of the device time at 32k rays: XLA materializes the (N, S)
-    one-hot in f32 for the forward, the rematerialized forward AND the
-    transpose -- ~230 MB of traffic per bounce). This custom VJP pins
-    both directions to one bf16 one-hot materialization each and saves
-    only the winner indices. The bf16 one-hot is exact (entries 0/1,
-    single nonzero per row, f32 accumulation), forward and backward.
+    The custom VJP builds one one-hot per direction and saves only the
+    winner indices (plain AD of the product would keep the (N, S)
+    one-hot alive for the rematerialized forward and the transpose).
+    Entries are 0/1 with one nonzero per row and both products run at
+    HIGHEST precision, so the forward is the table entry bit for bit.
     """
     oh = (sb_flat[:, None] == jnp.arange(table.shape[0],
                                          dtype=sb_flat.dtype)[None, :]
-          ).astype(jnp.bfloat16)
-    return jnp.dot(oh, table, preferred_element_type=jnp.float32)
+          ).astype(jnp.float32)
+    return jnp.dot(oh, table, precision=_HI,
+                   preferred_element_type=jnp.float32)
 
 
 def _ohg_fwd(sb_flat, table):
@@ -182,8 +183,9 @@ def _ohg_bwd(res, d_out):
 
     sb_flat, s = res
     oh = (sb_flat[:, None] == jnp.arange(s, dtype=sb_flat.dtype)[None, :]
-          ).astype(jnp.bfloat16)
-    d_table = jnp.dot(oh.T, d_out, preferred_element_type=jnp.float32)
+          ).astype(jnp.float32)
+    d_table = jnp.dot(oh.T, d_out, precision=_HI,
+                      preferred_element_type=jnp.float32)
     return np.zeros(sb_flat.shape, dtype=jax.dtypes.float0), d_table
 
 
@@ -298,7 +300,7 @@ def _shade_step_planar(scene: Scene, options: TraceOptions,
     # One-hot gather of the winning sphere's geometry + material. The
     # one-hot matrix is a piecewise-constant function of sb (no gradient);
     # the TABLE carries the scene-leaf gradients through the matmul
-    # transpose (custom VJP: one bf16 one-hot per direction).
+    # transpose (custom VJP: one one-hot per direction).
     table = _material_table(scene)
     params = _onehot_gather(sb.reshape(-1), table)
 
@@ -365,12 +367,11 @@ def _shade_step_planar(scene: Scene, options: TraceOptions,
 
 
 def trace_planar(scene: Scene, rays, rkey_words, max_depth: int,
-                 options: TraceOptions, rows: int = 64, strat0=None):
+                 options: TraceOptions, strat0=None):
     """Differentiable fixed-depth planar trace -> (resr, resg, resb) planes.
 
     rays: 6-tuple of (R, 128) planes; rkey_words: (k0, k1) per-ray
-    uint32 key-word planes (ops/planar.camera_rays); R must be a
-    multiple of ``rows``.
+    uint32 key-word planes (ops/planar.camera_rays).
     """
     r_total = rays[0].shape[0]
     zero = jnp.zeros((r_total, LANES), jnp.float32)
@@ -378,21 +379,20 @@ def trace_planar(scene: Scene, rays, rkey_words, max_depth: int,
     state = (*rays, one, one, one, zero, zero, zero,
              jnp.ones((r_total, LANES), bool), *rkey_words)
 
-    # Rematerialize the shading glue for backward, but keep the Pallas
-    # closest-hit OUTSIDE the checkpoint boundary: its three (R, 128)
+    # Rematerialize the shading glue for backward, but keep the
+    # closest hit OUTSIDE the checkpoint boundary: its three (R, 128)
     # output planes per bounce are then saved by scan's AD as inputs of
     # the rematted shade step, so the backward pass never re-runs the
     # kernel (a custom_vjp call is a remat-opaque primitive -- naming its
     # outputs with checkpoint_name cannot spare the replay, because the
-    # custom VJP's residuals are the raw pre-name jaxpr vars). Profiled:
-    # the kernel re-run was ~1/3 of the post-matmul-VJP train step.
+    # custom VJP's residuals are the raw pre-name jaxpr vars).
     shade = jax.checkpoint(
         functools.partial(_shade_step_planar, scene, options,
                           strat0=strat0))
 
     def body(st, bounce):
         t, sb, hit_i = closest_hit_planar(
-            st[:6], (scene.centers, scene.radii), options.t_min, rows)
+            st[:6], (scene.centers, scene.radii), options.t_min)
         return shade(st, (t, sb, hit_i), bounce), None
 
     state, _ = jax.lax.scan(body, state, jnp.arange(max_depth))
@@ -402,15 +402,6 @@ def trace_planar(scene: Scene, rays, rkey_words, max_depth: int,
 # ---------------------------------------------------------------------------
 # Pixel-chunk renderer (the planar drop-in for render.render_pixels_impl)
 # ---------------------------------------------------------------------------
-
-def _pick_rows(n_lanes_min: int) -> int:
-    """Kernel rows per block: full 128-row blocks for big batches, small
-    blocks for tiny ones (tests)."""
-    for rows in (64, 8):
-        if n_lanes_min >= rows * LANES:
-            return rows
-    return 8
-
 
 def render_pixels_planar_impl(scene: Scene, cam: Camera, pixel_ids,
                               base_key, *, width: int, height: int,
@@ -450,8 +441,7 @@ def render_pixels_planar_impl(scene: Scene, cam: Camera, pixel_ids,
             % (sample_offset, sample_offset + spp, strata))
     p = pixel_ids.shape[0]
     n = p * spp
-    rows = _pick_rows(n)
-    blk = rows * LANES
+    blk = ROW_MULTIPLE * LANES
     n_pad = -(-n // blk) * blk
     r_total = n_pad // LANES
 
@@ -481,7 +471,7 @@ def render_pixels_planar_impl(scene: Scene, cam: Camera, pixel_ids,
             options.scatter_sample == "unit")
     resr, resg, resb = trace_planar(
         scene, (ox, oy, oz, dx, dy, dz), (rk0, rk1), max_depth, options,
-        rows=rows, strat0=strat0)
+        strat0=strat0)
 
     def reduce(plane):
         flat = plane.reshape(-1)[:n]

@@ -11,16 +11,15 @@ Reference semantics being re-expressed (SURVEY #8/#15):
 The CUDA path's shrinking-t_max running min is mathematically identical to
 a global argmin over per-sphere candidates computed with t_max = +inf
 (the far root can never rescue a sphere whose near root lost, since
-far >= near), so the TPU formulation is one masked argmin -- perfectly
+far >= near), so this formulation is one masked argmin -- perfectly
 parallel, no sequential dependence.
 
-TPU-native shape strategy: NO (N, S, 3) tensor is ever built. All
-intermediates are 2-D (N, B) arrays produced by (N,1) x (1,B) broadcasts of
-the *components* -- pure VPU code that XLA fuses into a single loop nest
+Shape strategy: NO (N, S, 3) tensor is ever built. All intermediates are
+2-D (N, B) arrays produced by (N,1) x (1,B) broadcasts of the
+*components* -- elementwise code that XLA fuses into a single loop nest
 ending in the min/argmin reduction, streamed over sphere blocks of size B
-with a running (t, idx) accumulator (`lax.scan`). This is the same
-structure the Pallas kernel uses, and keeps the working set at
-O(N * sphere_block) regardless of scene size.
+with a running (t, idx) accumulator (`lax.scan`), which keeps the working
+set at O(N * sphere_block) regardless of scene size.
 """
 
 from __future__ import annotations
@@ -127,9 +126,9 @@ def closest_hit(origin, direction, centers, radii, t_min, sphere_block=512):
     return t, idx, t < BIG
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5, 6))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
 def closest_hit_diff(origin, direction, centers, radii, t_min,
-                     sphere_block=512, use_pallas=False):
+                     sphere_block=512):
     """closest_hit with an analytic O(N) backward pass.
 
     XLA's transpose of the (N, S) candidate broadcast materializes the
@@ -140,33 +139,21 @@ def closest_hit_diff(origin, direction, centers, radii, t_min,
         dt = [ (p-c)·dc + r dr - (p-c)·do - t (p-c)·dd ] / ((p-c)·d)
 
     with p = o + t d -- all O(N) elementwise plus one (N,)->(S,)
-    scatter-add for the sphere cotangents. This also makes the
-    forward-only Pallas kernel legal inside reverse-mode traces
-    (use_pallas=True).
+    scatter-add for the sphere cotangents.
     """
-    return _closest_hit_fwd_impl(origin, direction, centers, radii, t_min,
-                                 sphere_block, use_pallas)
-
-
-def _closest_hit_fwd_impl(origin, direction, centers, radii, t_min,
-                          sphere_block, use_pallas):
-    if use_pallas:
-        from .pallas_intersect import closest_hit_pallas
-
-        return closest_hit_pallas(origin, direction, centers, radii, t_min)
     return closest_hit(origin, direction, centers, radii, t_min,
                        sphere_block)
 
 
 def _closest_hit_fwd(origin, direction, centers, radii, t_min,
-                     sphere_block, use_pallas):
-    out = _closest_hit_fwd_impl(origin, direction, centers, radii, t_min,
-                                sphere_block, use_pallas)
+                     sphere_block):
+    out = closest_hit(origin, direction, centers, radii, t_min,
+                      sphere_block)
     t, idx, hit = out
     return out, (origin, direction, centers, radii, t, idx, hit)
 
 
-def _closest_hit_bwd(t_min, sphere_block, use_pallas, res, g):
+def _closest_hit_bwd(t_min, sphere_block, res, g):
     origin, direction, centers, radii, t, idx, hit = res
     g_t = g[0]  # idx/hit are integer/bool outputs: zero cotangent
     s = centers.shape[0]

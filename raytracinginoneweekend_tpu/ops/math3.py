@@ -1,9 +1,9 @@
 """Vector math on trailing-axis-3 arrays.
 
-TPU-native re-expression of the reference's ``math::vec3`` / free functions
+Re-expression of the reference's ``math::vec3`` / free functions
 (reference: src/math.hxx:23-354). There is no vector *class*: everything is a
 pure function over ``jnp`` arrays of shape ``(..., 3)`` so that XLA sees plain
-elementwise graphs it can fuse and tile onto the VPU (8x128 lanes).
+elementwise graphs it can fuse.
 
 Reference citations (for parity checking):
   - dot/cross/length/normalize      math.hxx:246-292

@@ -1,35 +1,38 @@
-"""Pallas TPU megakernel: one trace segment = intersect + surface + material.
+"""One trace segment over planar ray state: closest hit + winner resolve.
 
-Motivation (measured on v5e): XLA's per-ray gathers cost ~80ns each
-(scene.material_index[idx], albedo[mi], centers[idx]... ~40ms per bounce at
-512k rays -- the dominant cost of the naive wavefront loop), while a fused
-VMEM kernel does the whole closest-hit in ~10ns/ray. So the kernel never
-produces an index for XLA to gather from; it resolves everything per ray
-before leaving VMEM:
+Closest hit has two implementations with one contract, (hit_i, t,
+sphere_idx) planes for (R, 128) ray planes:
 
-  1. Min loop: per-sphere candidate t with a running (t_best, s_best) --
-     only TWO carried selects. (Carrying all 10 geometry/material values
-     through the loop measured ~1.9x slower: 9 extra selects + 6 extra
-     SMEM scalar loads per sphere.)
-  2. One-hot MXU gather (XLA side, after the kernel): params =
-     one_hot(s_best, S) @ table, where table is an (S, 16) array of
-     per-sphere [cx cy cz r mtype alb_r alb_g alb_b fuzz ior]. The
-     one-hot row has exactly one 1.0, so the matmul is an EXACT gather
-     running on the MXU instead of serialized gather hardware. (An
-     in-kernel version hits a Mosaic lanes->sublanes reshape limit.)
-  3. Hit position + normal from the gathered center/radius (negative
-     radii flip inward -- hollow glass, SURVEY Q10; raytracer.hxx:71).
+  * ``closest_hit_triton`` -- a Pallas kernel through Triton. One ray per
+    lane; each lane walks the whole sphere list keeping its running
+    (q, index) minimum in registers, the loop the reference's CUDA
+    renderer runs per thread (cuda_impl.cu:176-188). A block whose rays
+    are all inactive skips its sphere loop, so drained blocks cost
+    almost nothing while stragglers finish.
+  * ``closest_hit_xla`` -- ops/intersect.closest_hit (the (N, S)
+    candidate matrix that XLA fuses into a min/argmin reduction) behind
+    the planar interface.
 
-  kernel inputs  (per ray, planar (ROWS,128) f32): ox oy oz dx dy dz
-  kernel prefetch (per sphere, SMEM): cx cy cz r
-  kernel outputs (per ray, planar): hit t sphere_index
+``closest_hit`` picks by platform and call size: the kernel, compiled,
+on the GPU for calls of at least KERNEL_MIN_RAYS rays; the XLA version
+for smaller calls and on every other platform. With one ray per thread
+the kernel needs many rays to fill the card; XLA's reduction spreads
+each ray's spheres over threads and wins on small calls (PERF.md). The
+kernel runs in the Pallas interpreter only when a caller passes
+``interpret=True`` (the tests do).
 
-Candidate/selection semantics identical to ops/intersect.py: near root
-preferred, far root fallback, (t_min, inf) window, strict '<' running min
-keeping the earliest sphere.
+Candidate semantics match ops/intersect.py: near root preferred, far
+root as fallback, the (t_min, inf) window, strict '<' running minimum
+keeping the earliest sphere. The kernel compares in q = t*a space
+(a = |d|^2 > 0 per ray), which moves the rounding of t but not which
+sphere wins except on knife-edge rays whose two best candidates agree to
+f32 precision, and takes sqrt unguarded: a negative discriminant gives
+NaN, every NaN comparison is false, so misses fall through to the _BIG
+sentinel (an exact disc == 0 graze counts as a hit there).
 
-Interpret mode on non-TPU backends keeps this the single code path for
-tests.
+The winner's parameters come from ``resolve_params``: a one-hot matmul
+against the per-sphere table at HIGHEST precision, so every resolved
+value is the table entry bit for bit.
 """
 
 from __future__ import annotations
@@ -39,852 +42,176 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
+
+from . import intersect
 
 LANES = 128
 _BIG = 1e30
-TABLE_COLS = 16  # 10 used + pad to an MXU-friendly width
-GROUP = 16  # spheres per cull group
-MIN_SPHERES_FOR_GROUPS = 64
+UNROLL = 4      # spheres per kernel loop iteration
+BLOCK = 256     # rays per kernel program (a power of two)
+NUM_WARPS = 4
+# Smallest call the kernel takes on the GPU: on an H100 the XLA version
+# won the flagship frame at 2^15 and 2^16 rays per call and the kernel
+# won from 2^17 (PERF.md).
+KERNEL_MIN_RAYS = 1 << 17
 
 
-UNROLL = 8  # spheres per min-loop iteration (measured: -11% vs 1 on v5e)
-UNROLL_LIST = 4  # list-kernel unroll (candidate counts are small)
+def default_impl(n_rays: int) -> str:
+    """The closest-hit implementation for a call of ``n_rays`` rays."""
+    if jax.default_backend() == "gpu" and n_rays >= KERNEL_MIN_RAYS:
+        return "triton"
+    return "xla"
 
 
-def _kernel(cx_ref, cy_ref, cz_ref, rr_ref,  # SMEM scalar-prefetch (S_pad,)
-            act_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,  # VMEM
-            hit_ref, t_ref, sb_ref,
-            *, rows: int, n_spheres: int, t_min: float):
-    """Closest-hit min loop, measured micro-opts (v5e, see git history):
+def _hit_kernel(sph_ref, trips_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref,
+                dz_ref, hit_ref, t_ref, sb_ref, *, t_min: float):
+    """Closest hit for one block of rays against every sphere.
 
-    * NaN-tolerant candidates: sqrt(disc) is taken unguarded; disc < 0
-      yields NaN, every NaN comparison is False, so misses fall through to
-      the BIG sentinel with no `pos` mask ops at all (-6%). (Semantics
-      delta vs a guarded disc>0 test: an EXACT disc==0 graze now counts as
-      a hit -- measure-zero in f32 and absent from every parity suite.)
-    * rr prefetch: the per-sphere r*r is precomputed host-side; padding
-      spheres carry rr = -1 so c = |oc|^2 + 1 > 0 keeps disc < 0 by a
-      >= a margin -- pads can never produce a candidate even with
-      rounding (n_spheres is padded to a multiple of UNROLL).
-    * UNROLL-way unrolling with a pairwise tournament before the single
-      carried (q, idx) select: breaks the loop-carried dependency and
-      feeds the VPU independent chains (-11%).
-
-    Candidates are compared in q = t*a space (a > 0 per-ray constant),
-    saving two inv_a multiplies per sphere; the t_min window becomes
-    q > t_min*a. Strict < everywhere keeps the EARLIEST sphere on ties
-    (CUDA running-min semantics, cuda_impl.cu:183-188).
+    sph_ref rows are (cx, cy, cz, r*r); pad rows carry rr = -1, so their
+    discriminant b^2 - a(|oc|^2 + 1) < 0 and they can never win.
+    trips_ref holds this block's loop trip count: 0 when none of its
+    rays is active, so a drained block runs no sphere iterations.
     """
-    any_active = jnp.any(act_ref[:] > 0)
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
+    a = dx * dx + dy * dy + dz * dz
+    q_min = t_min * a
+    n = trips_ref[0]
 
-    @pl.when(jnp.logical_not(any_active))
-    def _():
-        # Entire block dead (its task chunk drained): skip the sphere
-        # loop. t/sb stay stale -- every downstream use is masked by
-        # active/hit, so only hit needs a defined value.
-        hit_ref[:] = jnp.zeros((rows, LANES), jnp.int32)
-
-    @pl.when(any_active)
-    def _():
-        ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-        dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-        a = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / a
-        q_min = t_min * a
-
-        def cand(s):
-            cx, cy, cz, rr = cx_ref[s], cy_ref[s], cz_ref[s], rr_ref[s]
-            ocx = ox - cx
-            ocy = oy - cy
-            ocz = oz - cz
+    def body(i, carry):
+        q_b, s_b = carry
+        for k in range(UNROLL):
+            s = i * UNROLL + k
+            ocx = ox - sph_ref[s, 0]
+            ocy = oy - sph_ref[s, 1]
+            ocz = oz - sph_ref[s, 2]
             b = ocx * dx + ocy * dy + ocz * dz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - rr
+            c = ocx * ocx + ocy * ocy + ocz * ocz - sph_ref[s, 3]
             sq = jnp.sqrt(b * b - a * c)  # NaN when disc < 0 (see above)
-            nb = -b
-            q0 = nb - sq
-            q1 = nb + sq
-            return jnp.where(q0 > q_min, q0,
-                             jnp.where(q1 > q_min, q1, _BIG))
+            q0 = -b - sq
+            q1 = -b + sq
+            q = jnp.where(q0 > q_min, q0, jnp.where(q1 > q_min, q1, _BIG))
+            w = q < q_b
+            q_b = jnp.where(w, q, q_b)
+            s_b = jnp.where(w, s, s_b)
+        return q_b, s_b
 
-        def body(i, carry):
-            q_b, s_b = carry
-            s = i * UNROLL
-            qs = [cand(s + k) for k in range(UNROLL)]
-            qp, ip = qs[0], s
-            for k in range(1, UNROLL):
-                wk = qs[k] < qp
-                qp = jnp.where(wk, qs[k], qp)
-                ip = jnp.where(wk, s + k, ip)
-            w = qp < q_b
-            return jnp.where(w, qp, q_b), jnp.where(w, ip, s_b)
-
-        q_b = jnp.full((rows, LANES), _BIG, jnp.float32)
-        s_b = jnp.zeros((rows, LANES), jnp.int32)
-        q_b, s_b = jax.lax.fori_loop(0, n_spheres // UNROLL, body,
-                                     (q_b, s_b))
-        hit = q_b < _BIG
-        hit_ref[:] = hit.astype(jnp.int32)
-        t_ref[:] = jnp.where(hit, q_b * inv_a, _BIG)
-        sb_ref[:] = s_b
+    q_b = jnp.full(ox.shape, _BIG, jnp.float32)
+    s_b = jnp.zeros(ox.shape, jnp.int32)
+    q_b, s_b = jax.lax.fori_loop(0, n, body, (q_b, s_b))
+    hit = q_b < _BIG
+    hit_ref[...] = hit.astype(jnp.int32)
+    t_ref[...] = jnp.where(hit, q_b / a, _BIG)
+    sb_ref[...] = s_b
 
 
-def _kernel_list(cnt_ref, lst_ref, cx_ref, cy_ref, cz_ref, rr_ref,  # SMEM
-                 act_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                 hit_ref, t_ref, sb_ref,
-                 *, rows: int, t_min: float):
-    """Closest-hit over a per-BLOCK candidate LIST (coherent workloads).
+def closest_hit_triton(rays, cx, cy, cz, r, t_min, active=None, *,
+                       block: int = BLOCK, num_warps: int = NUM_WARPS,
+                       interpret: bool = False):
+    """Closest hit by the Triton kernel -> (hit_i, t, sphere_idx) planes.
 
-    Block b's grid program loops only over lst_ref[b, :cnt_ref[b]] --
-    sphere ids selected by a conservative bounding-cone cull
-    (ops/cull.py) computed per block on the XLA side. The candidate math
-    is identical to _kernel (q-space, NaN-tolerant, rr prefetch), the
-    list is ascending in sphere id and the tournament keeps the earliest
-    id on exact q ties, so outputs are bit-identical to the full loop
-    whenever the cull is conservative. cnt is pre-rounded to a multiple
-    of UNROLL_LIST; pad entries index the rr = -1 pad sphere (can never
-    produce a candidate).
+    rays: 6-tuple of equal-shape f32 planes; cx/cy/cz/r: (S,) geometry;
+    active: optional bool/int plane (inactive rays report hit = 0).
+    block: rays per program, a power of two.
     """
-    b = pl.program_id(0)
-    any_active = jnp.any(act_ref[:] > 0)
-
-    @pl.when(jnp.logical_not(any_active))
-    def _():
-        hit_ref[:] = jnp.zeros((rows, LANES), jnp.int32)
-
-    @pl.when(any_active)
-    def _():
-        ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-        dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-        a = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / a
-        q_min = t_min * a
-
-        def cand(s):
-            cx, cy, cz, rr = cx_ref[s], cy_ref[s], cz_ref[s], rr_ref[s]
-            ocx = ox - cx
-            ocy = oy - cy
-            ocz = oz - cz
-            bq = ocx * dx + ocy * dy + ocz * dz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - rr
-            sq = jnp.sqrt(bq * bq - a * c)  # NaN when disc < 0
-            nb = -bq
-            q0 = nb - sq
-            q1 = nb + sq
-            return jnp.where(q0 > q_min, q0,
-                             jnp.where(q1 > q_min, q1, _BIG))
-
-        def body(i, carry):
-            q_b, s_b = carry
-            base = i * UNROLL_LIST
-            ss = [lst_ref[b, base + k] for k in range(UNROLL_LIST)]
-            qs = [cand(s) for s in ss]
-            qp, ip = qs[0], jnp.full((rows, LANES), ss[0], jnp.int32)
-            for k in range(1, UNROLL_LIST):
-                wk = qs[k] < qp
-                qp = jnp.where(wk, qs[k], qp)
-                ip = jnp.where(wk, ss[k], ip)
-            w = qp < q_b
-            return jnp.where(w, qp, q_b), jnp.where(w, ip, s_b)
-
-        q_b = jnp.full((rows, LANES), _BIG, jnp.float32)
-        s_b = jnp.zeros((rows, LANES), jnp.int32)
-        q_b, s_b = jax.lax.fori_loop(0, cnt_ref[b] // UNROLL_LIST, body,
-                                     (q_b, s_b))
-        hit = q_b < _BIG
-        hit_ref[:] = hit.astype(jnp.int32)
-        t_ref[:] = jnp.where(hit, q_b * inv_a, _BIG)
-        sb_ref[:] = s_b
-
-
-def segment_closest_hit_list(rays, cx, cy, cz, r, counts, lists, t_min,
-                             rows: int = 128, interpret: bool | None = None,
-                             active=None):
-    """List-driven closest-hit: block b tests only its candidate spheres.
-
-    counts: (B,) i32 candidates per kernel block (B = R/rows), each a
-      multiple of UNROLL_LIST (ops/cull.py rounds and pads).
-    lists: (B, L) i32 sphere ids, ascending per block; entries past the
-      count (and rounding pads) must index the appended pad sphere (id
-      S), whose rr = -1 guarantees it never wins.
-    Returns (hit_i, t, sphere_idx) exactly like segment_closest_hit.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    r_total = rays[0].shape[0]
-    assert r_total % rows == 0, (r_total, rows)
-    assert counts.shape[0] == r_total // rows, (counts.shape, r_total, rows)
+    shape = rays[0].shape
+    n = rays[0].size
     s = cx.shape[0]
-    grid = r_total // rows
-    # One pad sphere at id S with rr = -1 (see segment_closest_hit).
-    zf = jnp.zeros((1,), cx.dtype)
-    cx = jnp.concatenate([cx, zf])
-    cy = jnp.concatenate([cy, zf])
-    cz = jnp.concatenate([cz, zf])
-    rr = jnp.concatenate([r * r, zf - 1.0])
+    n_pad = -(-n // block) * block
+    s_loop = -(-s // UNROLL) * UNROLL
+    s_tab = max(1 << (s_loop - 1).bit_length(), UNROLL)
+    pad_s = s_tab - s
+    zf = jnp.zeros((pad_s,), jnp.float32)
+    table = jnp.stack([
+        jnp.concatenate([cx.astype(jnp.float32), zf]),
+        jnp.concatenate([cy.astype(jnp.float32), zf]),
+        jnp.concatenate([cz.astype(jnp.float32), zf]),
+        jnp.concatenate([(r * r).astype(jnp.float32), zf - 1.0]),
+    ], axis=1)
+
+    def flat(p, fill=0):
+        p = p.reshape(-1)
+        if n_pad > n:
+            p = jnp.concatenate([p, jnp.full((n_pad - n,), fill, p.dtype)])
+        return p
+
+    n_iter = s_loop // UNROLL
     if active is None:
-        act = jnp.ones((r_total, LANES), jnp.int32)
+        trips = jnp.full((n_pad // block,), n_iter, jnp.int32)
     else:
-        act = active.astype(jnp.int32)
-    bs = pl.BlockSpec((rows, LANES), lambda i, *_: (i, 0),
-                      memory_space=pltpu.VMEM)
-    shapes = [jax.ShapeDtypeStruct((r_total, LANES), dt) for dt in
-              (jnp.int32, jnp.float32, jnp.int32)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=6, grid=(grid,),
-        in_specs=[bs] * 7, out_specs=[bs] * 3)
-    return pl.pallas_call(
-        functools.partial(_kernel_list, rows=rows, t_min=float(t_min)),
-        grid_spec=grid_spec, out_shape=shapes, interpret=interpret,
-    )(counts, lists, cx, cy, cz, rr, act, *rays)
+        live = flat(active.astype(jnp.int32)).reshape(-1, block).max(1)
+        trips = jnp.where(live > 0, n_iter, 0).astype(jnp.int32)
+    ray_planes = [flat(p) for p in rays[:3]]
+    # Padded rays get a non-degenerate direction (a = |d|^2 > 0).
+    ray_planes += [flat(rays[3], 1.0), flat(rays[4]), flat(rays[5])]
+    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    tab_spec = pl.BlockSpec((s_tab, 4), lambda i: (0, 0))
+    trip_spec = pl.BlockSpec((1,), lambda i: (i,))
+    out = pl.pallas_call(
+        functools.partial(_hit_kernel, t_min=float(t_min)),
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), dt) for dt in
+                   (jnp.int32, jnp.float32, jnp.int32)],
+        grid=(n_pad // block,),
+        in_specs=[tab_spec, trip_spec] + [ray_spec] * 6,
+        out_specs=[ray_spec] * 3,
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="rtw_closest_hit",
+    )(table, trips, *ray_planes)
+    return tuple(o[:n].reshape(shape) for o in out)
 
 
-_SORT_REL = 5e-6   # multiplicative f32 slack on in-kernel distance bounds
-_SORT_ABS = 1e-4   # additive slack (world units)
-_SORT_KEY_MARGIN = 1e-3  # key-side absolute margin (sorted_cull_state)
+def closest_hit_xla(rays, cx, cy, cz, r, t_min, active=None):
+    """ops/intersect.closest_hit on planar rays -> (hit_i, t, sphere_idx)."""
+    shape = rays[0].shape
+    o = jnp.stack([p.reshape(-1) for p in rays[:3]], axis=-1)
+    d = jnp.stack([p.reshape(-1) for p in rays[3:]], axis=-1)
+    centers = jnp.stack([cx, cy, cz], axis=-1)
+    t, idx, hit = intersect.closest_hit(o, d, centers, r, t_min)
+    if active is not None:
+        hit = hit & (active.reshape(-1) > 0)
+    return (hit.astype(jnp.int32).reshape(shape), t.reshape(shape),
+            idx.reshape(shape))
 
 
-def _kernel_sorted(perm_ref, suf_ref, oc_ref, yb_ref,    # SMEM per-block
-                   cx_ref, cy_ref, cz_ref, rr_ref,       # SMEM (S+1,)
-                   act_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                   hit_ref, t_ref, sb_ref,
-                   *, rows: int, n_chunks: int, ladder: tuple,
-                   t_min: float):
-    """Closest hit in per-block DISTANCE order with whole-block early exit.
+def closest_hit(rays, cx, cy, cz, r, t_min, active=None):
+    """Closest hit over planar rays -> (hit_i, t, sphere_idx) planes,
+    by the implementation default_impl picks for this call.
 
-    The TPU re-expression of the reference's shrinking t_max
-    (cuda_impl.cu:183-188): instead of each thread shrinking its own
-    search window, the whole block iterates spheres sorted by a
-    conservative lower bound on their hit distance and stops as soon as
-    EVERY active lane provably cannot improve. Bounds (all f32 with
-    explicit slack, so skipping is exact -- skipped spheres can never
-    win the strict-< running min):
-
-      * key_j = |O_c - C_j| - |R_j| - margin  <=  any lane's hit
-        distance on sphere j minus bl, where bl = |o - O_c| (triangle
-        inequality; O_c is the block's active-origin centroid, computed
-        once per ENGINE EPOCH so it may be stale -- staleness loosens
-        the bound but never breaks it).
-      * suf_ref[b, i] = min key over every sphere from chunk i on
-        (suffix min at chunk granularity, computed with the sort).
-      * a lane is FINISHED at chunk i when min(dist_best, dist_exit) + bl
-        <= suf_ref[b, i], where dist_exit is the distance at which the
-        ray leaves the slab containing every sphere (top plane ymax for
-        ascending rays, bottom plane ymin for descending ones): sky rays
-        -- which never acquire a dist_best -- become provably finished
-        instead of forcing a full scan. A ray already OUTSIDE the slab
-        heading away (dist_exit <= 0) is finished regardless of bl --
-        this term needs no block coherence at all. (The descending bound
-        was an ADVICE r3 finding: without it one dy <= 0 miss ray kept
-        dist_exit at _BIG and blocked the whole block's early exit.)
-
-    Exit structure: a static LADDER, not a while_loop (measured: a
-    data-dependent while_loop defeats Mosaic's SMEM-prefetch pipelining
-    and costs more than the culls recover). The sphere loop is split at
-    the ``ladder`` chunk checkpoints into plain fori_loop stages; each
-    stage is guarded by one whole-block done check against its start
-    suffix. Done-ness is MONOTONE in the checkpoint (the remaining-min
-    key only grows as chunks are consumed), so checks stay sound when
-    earlier stages were skipped. ladder=() disables every check (the
-    pure-overhead ablation). The (q, sb) running state crosses stage
-    boundaries through the t/sb output refs (register-carried inside
-    each stage).
-
-    Candidate math is identical to _kernel/_kernel_list (q-space,
-    NaN-tolerant, rr prefetch); the running min keeps the earliest
-    sphere in the SORTED order on exact q ties (the one observable
-    difference vs the id-ordered kernels, measure-zero in f32).
+    ``t`` and ``sphere_idx`` are unspecified where hit_i == 0.
     """
-    b = pl.program_id(0)
-    any_active = jnp.any(act_ref[:] > 0)
-
-    @pl.when(jnp.logical_not(any_active))
-    def _():
-        hit_ref[:] = jnp.zeros((rows, LANES), jnp.int32)
-
-    @pl.when(any_active)
-    def _():
-        ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-        dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-        a = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / a
-        q_min = t_min * a
-        rsa = jax.lax.rsqrt(a)          # dist = q * rsa = t * |d|
-        free = jnp.logical_not(act_ref[:] > 0)
-
-        ocx, ocy, ocz = oc_ref[b, 0], oc_ref[b, 1], oc_ref[b, 2]
-        blx = ox - ocx
-        bly = oy - ocy
-        blz = oz - ocz
-        bl = jnp.sqrt(blx * blx + bly * bly + blz * blz)
-        bl = bl + (bl * _SORT_REL + _SORT_ABS)
-        # Rays leave the all-spheres slab (ymin <= y <= ymax) at
-        # dist_exit; any hit must lie before that. |d| = a * rsa.
-        # Ascending rays exit through the top plane, descending through
-        # the bottom; dy == 0 rays never exit (no bound).
-        going = jnp.abs(dy) > 0.0
-        yexit = jnp.where(dy > 0.0, yb_ref[0], yb_ref[1])
-        ex = ((yexit - oy) * (a * rsa)
-              / jnp.where(going, dy, 1.0))
-        dist_up = jnp.where(going, ex + (jnp.abs(ex) * _SORT_REL
-                                         + _SORT_ABS), _BIG)
-
-        def cand(s):
-            cx, cy, cz, rr = cx_ref[s], cy_ref[s], cz_ref[s], rr_ref[s]
-            ocx_ = ox - cx
-            ocy_ = oy - cy
-            ocz_ = oz - cz
-            bq = ocx_ * dx + ocy_ * dy + ocz_ * dz
-            c = ocx_ * ocx_ + ocy_ * ocy_ + ocz_ * ocz_ - rr
-            sq = jnp.sqrt(bq * bq - a * c)  # NaN when disc < 0
-            nb = -bq
-            q0 = nb - sq
-            q1 = nb + sq
-            return jnp.where(q0 > q_min, q0,
-                             jnp.where(q1 > q_min, q1, _BIG))
-
-        sky_done = free | (dist_up <= 0.0)
-
-        def chunk(i, carry):
-            q_b, s_b = carry
-            base = i * UNROLL
-            ss = [perm_ref[b, base + k] for k in range(UNROLL)]
-            qs = [cand(s) for s in ss]
-            qp, ip = qs[0], jnp.full((rows, LANES), ss[0], jnp.int32)
-            for k in range(1, UNROLL):
-                wk = qs[k] < qp
-                qp = jnp.where(wk, qs[k], qp)
-                ip = jnp.where(wk, ss[k], ip)
-            w = qp < q_b
-            return jnp.where(w, qp, q_b), jnp.where(w, ip, s_b)
-
-        t_ref[:] = jnp.full((rows, LANES), _BIG, jnp.float32)
-        sb_ref[:] = jnp.zeros((rows, LANES), jnp.int32)
-
-        pts = sorted({int(c) for c in ladder if 0 < int(c) < n_chunks})
-        bounds = [0] + pts + [n_chunks]
-        for lo, hi in zip(bounds, bounds[1:]):
-            def run_stage(lo=lo, hi=hi):
-                q_b, s_b = jax.lax.fori_loop(lo, hi, chunk,
-                                             (t_ref[:], sb_ref[:]))
-                t_ref[:] = q_b
-                sb_ref[:] = s_b
-
-            if pts:
-                qd = jnp.minimum(t_ref[:] * rsa, dist_up)
-                done = jnp.all(sky_done | (qd + bl <= suf_ref[b, lo]))
-                pl.when(jnp.logical_not(done))(run_stage)
-            else:
-                run_stage()
-
-        q_b = t_ref[:]
-        hit = q_b < _BIG
-        hit_ref[:] = hit.astype(jnp.int32)
-        t_ref[:] = jnp.where(hit, q_b * inv_a, _BIG)  # sb_ref holds s_b
+    if default_impl(rays[0].size) == "triton":
+        return closest_hit_triton(rays, cx, cy, cz, r, t_min, active)
+    return closest_hit_xla(rays, cx, cy, cz, r, t_min, active)
 
 
-def sorted_cull_state(active, origins, cx, cy, cz, r, rows: int):
-    """Per-block sphere ordering + early-exit bounds for _kernel_sorted.
-
-    active: (R, 128) bool/i32; origins: (ox, oy, oz) planar (R, 128).
-    cx/cy/cz/r: (S,) sphere geometry (the UNPADDED scene arrays).
-    Returns (perm (B, S_pad) i32, suf (B, n_chunks+1) f32,
-    oc (B, 3) f32, ymax (1,) f32) where B = R/rows and S_pad rounds S
-    up to UNROLL (pad entries index the pad sphere id S).
-
-    Pure jnp; called once per engine epoch (the sort is the only
-    non-elementwise op: (B, S) argsort, ~1% of an epoch). Staleness of
-    O_c between epochs loosens the early exit but never its soundness
-    (the kernel recomputes |o - O_c| per segment against the SAME O_c).
-    """
-    ox, oy, oz = origins
-    r_total = ox.shape[0]
-    nb = r_total // rows
-    s = cx.shape[0]
-    def blk(v):
-        return v.reshape(nb, rows * LANES)
-
-    m = blk(active.astype(jnp.float32))
-    n = m.sum(axis=1)
-    safe_n = jnp.maximum(n, 1.0)
-    ocx = (m * blk(ox)).sum(axis=1) / safe_n
-    ocy = (m * blk(oy)).sum(axis=1) / safe_n
-    ocz = (m * blk(oz)).sum(axis=1) / safe_n
-
-    rabs = jnp.abs(r)[None, :]
-    keys = jnp.sqrt((cx[None, :] - ocx[:, None]) ** 2
-                    + (cy[None, :] - ocy[:, None]) ** 2
-                    + (cz[None, :] - ocz[:, None]) ** 2
-                    ) - rabs - _SORT_KEY_MARGIN
-    perm = jnp.argsort(keys, axis=1).astype(jnp.int32)
-    ks = jnp.take_along_axis(keys, perm, axis=1)
-    pad = -s % UNROLL
-    if pad:
-        perm = jnp.concatenate(
-            [perm, jnp.full((nb, pad), s, jnp.int32)], axis=1)
-        ks = jnp.concatenate(
-            [ks, jnp.full((nb, pad), _BIG, jnp.float32)], axis=1)
-    n_chunks = (s + pad) // UNROLL
-    cmin = ks.reshape(nb, n_chunks, UNROLL).min(axis=-1)
-    suf = jnp.flip(jax.lax.cummin(jnp.flip(cmin, axis=1), axis=1), axis=1)
-    suf = jnp.concatenate(
-        [suf, jnp.full((nb, 1), _BIG, jnp.float32)], axis=1)
-    yb = jnp.stack([jnp.max(cy + jnp.abs(r)),    # slab top (ymax)
-                    jnp.min(cy - jnp.abs(r))])   # slab bottom (ymin)
-    oc = jnp.stack([ocx, ocy, ocz], axis=1)
-    return perm, suf, oc, yb
+def sphere_table(sphere_params):
+    """The 10 per-sphere (S,) params -> (S, 10) f32 table."""
+    return jnp.stack([p.astype(jnp.float32) for p in sphere_params], axis=1)
 
 
-def segment_closest_hit_sorted(rays, cx, cy, cz, r, sortstate, t_min,
-                               rows: int = 128,
-                               interpret: bool | None = None, active=None,
-                               ladder: tuple = (1, 8)):
-    """Distance-ordered early-exit closest hit (see _kernel_sorted).
-
-    sortstate: the tuple from sorted_cull_state (same rows). ladder:
-    chunk checkpoints for the staged whole-block exit (() = no checks).
-    Results are identical to segment_closest_hit except on exact f32 q
-    ties between distinct spheres (sorted-order vs id-order tie winner).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    perm, suf, oc, yb = sortstate
-    r_total = rays[0].shape[0]
-    assert r_total % rows == 0, (r_total, rows)
-    grid = r_total // rows
-    assert perm.shape[0] == grid, (perm.shape, grid)
-    s = cx.shape[0]
-    n_chunks = perm.shape[1] // UNROLL
-    assert perm.shape[1] % UNROLL == 0, perm.shape
-    assert suf.shape == (grid, n_chunks + 1), (suf.shape, n_chunks)
-    # One pad sphere at id S with rr = -1 (can never win).
-    zf = jnp.zeros((1,), cx.dtype)
-    cx = jnp.concatenate([cx, zf])
-    cy = jnp.concatenate([cy, zf])
-    cz = jnp.concatenate([cz, zf])
-    rr = jnp.concatenate([r * r, zf - 1.0])
-    if active is None:
-        act = jnp.ones((r_total, LANES), jnp.int32)
-    else:
-        act = active.astype(jnp.int32)
-    bs = pl.BlockSpec((rows, LANES), lambda i, *_: (i, 0),
-                      memory_space=pltpu.VMEM)
-    shapes = [jax.ShapeDtypeStruct((r_total, LANES), dt) for dt in
-              (jnp.int32, jnp.float32, jnp.int32)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=8, grid=(grid,),
-        in_specs=[bs] * 7, out_specs=[bs] * 3)
-    return pl.pallas_call(
-        functools.partial(_kernel_sorted, rows=rows, n_chunks=n_chunks,
-                          ladder=tuple(ladder), t_min=float(t_min)),
-        grid_spec=grid_spec, out_shape=shapes, interpret=interpret,
-    )(perm, suf, oc, yb, cx, cy, cz, rr, act, *rays)
-
-
-def _kernel_grouped(cx_ref, cy_ref, cz_ref, r_ref,  # SMEM (S_pad,) sorted
-                    gx_ref, gy_ref, gz_ref, gr_ref,  # SMEM (n_groups,)
-                    act_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                    hit_ref, t_ref, sb_ref,
-                    *, rows: int, n_groups: int, t_min: float):
-    """Closest-hit with conservative per-block sphere-GROUP culling.
-
-    Spheres arrive sorted into depth-band groups of GROUP with a bounding
-    sphere each. For every group the whole ray block first tests the
-    bound (~14 ops); only if ANY ray might hit does the 16-sphere inner
-    loop run. Tasks are block-contiguous (ops/wavefront.py ownership), so
-    a block's rays share a narrow image strip and most depth bands cull.
-    The bound test is conservative (might-hit = disc>0 and not entirely
-    behind the origin), so results are identical to the ungrouped loop up
-    to argmin ties between exactly-equal t (sort-order dependent).
-    """
-    any_active = jnp.any(act_ref[:] > 0)
-
-    @pl.when(jnp.logical_not(any_active))
-    def _():
-        hit_ref[:] = jnp.zeros((rows, LANES), jnp.int32)
-
-    @pl.when(any_active)
-    def _():
-        ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-        dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
-        a = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / a
-
-        def sphere_body(s, carry):
-            t_b, s_b = carry
-            cx, cy, cz, r = cx_ref[s], cy_ref[s], cz_ref[s], r_ref[s]
-            ocx = ox - cx
-            ocy = oy - cy
-            ocz = oz - cz
-            b = ocx * dx + ocy * dy + ocz * dz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-            disc = b * b - a * c
-            pos = disc > 0.0
-            sq = jnp.sqrt(jnp.where(pos, disc, 1.0))
-            t0 = (-b - sq) * inv_a
-            t1 = (-b + sq) * inv_a
-            v0 = pos & (t0 > t_min)
-            v1 = pos & (t1 > t_min)
-            tc = jnp.where(v0, t0, jnp.where(v1, t1, _BIG))
-            w = tc < t_b
-            return jnp.where(w, tc, t_b), jnp.where(w, s, s_b)
-
-        def group_body(g, carry):
-            gx, gy, gz, gr = gx_ref[g], gy_ref[g], gz_ref[g], gr_ref[g]
-            ocx = ox - gx
-            ocy = oy - gy
-            ocz = oz - gz
-            b = ocx * dx + ocy * dy + ocz * dz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - gr * gr
-            might = ((b * b - a * c > 0.0) & ((b < 0.0) | (c < 0.0)))
-            return jax.lax.cond(
-                jnp.any(might),
-                lambda cr: jax.lax.fori_loop(g * GROUP, (g + 1) * GROUP,
-                                             sphere_body, cr),
-                lambda cr: cr,
-                carry)
-
-        t_b = jnp.full((rows, LANES), _BIG, jnp.float32)
-        s_b = jnp.zeros((rows, LANES), jnp.int32)
-        t_b, s_b = jax.lax.fori_loop(0, n_groups, group_body, (t_b, s_b))
-        hit_ref[:] = (t_b < _BIG).astype(jnp.int32)
-        t_ref[:] = t_b
-        sb_ref[:] = s_b
-
-
-def _kernel_mxu(o8_ref, d8_ref, a_ref, do_ref, oo_ref, act_ref,  # VMEM
-                ct_ref, ccr_ref,  # VMEM sphere tables (8, SP) / (1, SP)
-                hit_ref, t_ref, sb_ref,
-                *, rb: int, sp: int, t_min: float):
-    """Sphere-MINOR closest hit: rays on sublanes, spheres on lanes.
-
-    The sublane-layout kernel (_kernel) recomputes two 3-term dot
-    products per (ray, sphere) candidate on the VPU -- ~14 of its ~27
-    ops. Putting the sphere axis on LANES makes those dots two small
-    MXU matmuls over the whole candidate matrix:
-
-        dC = D8 @ CT,  oC = O8 @ CT        (RB, 8) @ (8, SP)
-
-    with b = d.o - dC and c = |o|^2 - 2 oC + (|C|^2 - r^2), leaving only
-    ~13 elementwise ops per candidate (roots, window, min) on the VPU.
-    The per-ray scalars (a = |d|^2, d.o, |o|^2) arrive precomputed as
-    (RB, 1) columns; the winner comes from a lane-axis min + earliest-
-    index tie-break (same strict-< / earliest-sphere semantics as the
-    running min, cuda_impl.cu:183-188, because sphere id == lane id is
-    ascending).
-
-    Numerics: the dots are algebraically regrouped (d.o - d.C vs
-    d.(o - C)), so f32 rounding differs from _kernel on knife-edge
-    candidates -- same magnitude of cancellation noise (terms ~|o||C|),
-    but not bit-identical. The matmuls run at HIGHEST precision (bf16x6
-    passes ~ f32); DEFAULT bf16 would lose the radius term entirely
-    (see the bf16 candidate-filter negative, ARCHITECTURE.md).
-
-    Pad spheres carry ct = 0, ccr = 1e8: disc = (d.o)^2 - a(|o|^2+1e8)
-    <= -a*1e8 < 0 by Cauchy-Schwarz, so pads can never win.
-    """
-    any_active = jnp.any(act_ref[:] > 0)
-
-    @pl.when(jnp.logical_not(any_active))
-    def _():
-        hit_ref[:] = jnp.zeros((rb, 1), jnp.int32)
-
-    @pl.when(any_active)
-    def _():
-        hi = jax.lax.Precision.HIGHEST
-        dC = jnp.dot(d8_ref[:], ct_ref[:], precision=hi,
-                     preferred_element_type=jnp.float32)  # (RB, SP)
-        oC = jnp.dot(o8_ref[:], ct_ref[:], precision=hi,
-                     preferred_element_type=jnp.float32)
-        a = a_ref[:]  # (RB, 1)
-        bneg = dC - do_ref[:]  # -b = d.C - d.o
-        c = (oo_ref[:] - (oC + oC)) + ccr_ref[:]
-        sq = jnp.sqrt(bneg * bneg - a * c)  # NaN when disc < 0
-        q0 = bneg - sq
-        q1 = bneg + sq
-        q_min = t_min * a
-        cand = jnp.where(q0 > q_min, q0,
-                         jnp.where(q1 > q_min, q1, _BIG))
-        qm = jnp.min(cand, axis=1, keepdims=True)  # (RB, 1)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (rb, sp), 1)
-        idx = jnp.min(jnp.where(cand == qm, lane, sp), axis=1,
-                      keepdims=True)
-        hit = qm < _BIG
-        hit_ref[:] = hit.astype(jnp.int32)
-        t_ref[:] = jnp.where(hit, qm / a, _BIG)
-        sb_ref[:] = jnp.where(hit, idx, 0)
-
-
-MXU_MAX_SPHERES = 4096  # single lane-chunk; (RB, SP) must fit VMEM
-
-
-def segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, rb: int = 256,
-                            interpret: bool | None = None, active=None):
-    """Sphere-minor (MXU dot-product) closest hit; same contract as
-    segment_closest_hit up to f32 rounding on knife-edge candidates.
-
-    rays: 6-tuple of (R, 128) planes. Internally rays are relaid out as
-    (R*128, 1) columns and (R*128, 8) padded xyz matrices (cheap XLA
-    reshapes; ~1.5 MB per 32k-lane call), and outputs reshaped back.
-    rb: rays per grid program (multiple of 8, divides R*128).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    ox, oy, oz, dx, dy, dz = rays
-    n_rows, lanes = ox.shape
-    r128 = n_rows * lanes
-    rb = min(rb, r128)
-    assert r128 % rb == 0, (r128, rb)
-    s = cx.shape[0]
-    assert s <= MXU_MAX_SPHERES, s
-    sp = -(-s // LANES) * LANES
-
-    def col(p):
-        return p.reshape(r128, 1)
-
-    def mat8(x, y, z):
-        m = jnp.stack([x.reshape(r128), y.reshape(r128), z.reshape(r128)],
-                      axis=-1)
-        return jnp.pad(m, ((0, 0), (0, 5)))
-
-    o8 = mat8(ox, oy, oz)
-    d8 = mat8(dx, dy, dz)
-    a = col(dx * dx + dy * dy + dz * dz)
-    do = col(dx * ox + dy * oy + dz * oz)
-    oo = col(ox * ox + oy * oy + oz * oz)
-    if active is None:
-        act = jnp.ones((r128, 1), jnp.int32)
-    else:
-        act = col(active.astype(jnp.int32))
-
-    ct = jnp.zeros((8, sp), jnp.float32)
-    ct = ct.at[0, :s].set(cx)
-    ct = ct.at[1, :s].set(cy)
-    ct = ct.at[2, :s].set(cz)
-    ccr = jnp.full((1, sp), 1e8, jnp.float32)
-    ccr = ccr.at[0, :s].set(cx * cx + cy * cy + cz * cz - r * r)
-
-    grid = r128 // rb
-    bs_col = pl.BlockSpec((rb, 1), lambda i: (i, 0),
-                          memory_space=pltpu.VMEM)
-    bs_m8 = pl.BlockSpec((rb, 8), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    bs_ct = pl.BlockSpec((8, sp), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM)
-    bs_ccr = pl.BlockSpec((1, sp), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    shapes = [jax.ShapeDtypeStruct((r128, 1), dt) for dt in
-              (jnp.int32, jnp.float32, jnp.int32)]
-    hit_c, t_c, sb_c = pl.pallas_call(
-        functools.partial(_kernel_mxu, rb=rb, sp=sp, t_min=float(t_min)),
-        grid=(grid,),
-        in_specs=[bs_m8, bs_m8, bs_col, bs_col, bs_col, bs_col,
-                  bs_ct, bs_ccr],
-        out_specs=[bs_col] * 3,
-        out_shape=shapes, interpret=interpret,
-    )(o8, d8, a, do, oo, act, ct, ccr)
-    return (hit_c.reshape(n_rows, lanes), t_c.reshape(n_rows, lanes),
-            sb_c.reshape(n_rows, lanes))
-
-
-def closest_hit_planar(rays, cx, cy, cz, r, t_min, rows: int = 128,
-                       interpret: bool | None = None, active=None,
-                       kernel: str = "sublane", rb: int = 256):
-    """Dispatch between the two planar closest-hit kernel layouts."""
-    if kernel == "mxu" and cx.shape[0] <= MXU_MAX_SPHERES:
-        return segment_closest_hit_mxu(rays, cx, cy, cz, r, t_min, rb=rb,
-                                       interpret=interpret, active=active)
-    return segment_closest_hit(rays, cx, cy, cz, r, t_min, rows=rows,
-                               interpret=interpret, active=active)
-
-
-def segment_closest_hit(rays, cx, cy, cz, r, t_min, rows: int = 128,
-                        interpret: bool | None = None, active=None):
-    """Raw closest-hit kernel over planar rays -> (hit_i, t, sphere_idx).
-
-    The forward-only Pallas call shared by trace_segment and the
-    planar-AD engine's custom-VJP wrapper (ops/integrate_planar.py).
-    rays: 6-tuple of (R, 128) planes; cx/cy/cz/r: (S,) sphere geometry.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    r_total = rays[0].shape[0]
-    assert r_total % rows == 0, (r_total, rows)
-    s = cx.shape[0]
-    grid = r_total // rows
-    # Pad the sphere tables to the kernel's UNROLL multiple. Pad spheres
-    # carry rr = -1: their discriminant is b^2 - a(|oc|^2 + 1) <= -a < 0
-    # robustly (Cauchy-Schwarz plus a >= a margin over f32 rounding), so
-    # they can never win and sb stays in [0, s).
-    rr = r * r
-    pad = -s % UNROLL
-    if pad:
-        zf = jnp.zeros((pad,), cx.dtype)
-        cx = jnp.concatenate([cx, zf])
-        cy = jnp.concatenate([cy, zf])
-        cz = jnp.concatenate([cz, zf])
-        rr = jnp.concatenate([rr, zf - 1.0])
-    if active is None:
-        act = jnp.ones((r_total, LANES), jnp.int32)
-    else:
-        act = active.astype(jnp.int32)
-    bs = pl.BlockSpec((rows, LANES), lambda i, *_: (i, 0),
-                      memory_space=pltpu.VMEM)
-    shapes = [jax.ShapeDtypeStruct((r_total, LANES), dt) for dt in
-              (jnp.int32, jnp.float32, jnp.int32)]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4, grid=(grid,),
-        in_specs=[bs] * 7, out_specs=[bs] * 3)
-    return pl.pallas_call(
-        functools.partial(_kernel, rows=rows, n_spheres=s + pad,
-                          t_min=float(t_min)),
-        grid_spec=grid_spec, out_shape=shapes, interpret=interpret,
-    )(cx, cy, cz, rr, act, *rays)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("t_min", "rows", "interpret", "hit_kernel"))
-def trace_segment(rays, sphere_params, t_min, rows: int = 128,
-                  interpret: bool | None = None, active=None,
-                  group_params=None, hit_kernel: str = "sublane"):
-    """One fused trace segment over planar ray state.
-
-    Args:
-      rays: tuple of 6 planar (R, 128) f32 arrays (ox oy oz dx dy dz); R
-        must be a multiple of ``rows``.
-      active: optional (R, 128) bool/i32 plane; a kernel block whose
-        lanes are all inactive skips its sphere loop entirely (drained
-        blocks become nearly free while stragglers finish).
-      group_params: optional (gx, gy, gz, gR) per-group bounding spheres
-        for depth-band culling; requires sphere_params sorted to match
-        (see group_scene). S must then be a multiple of GROUP.
-      sphere_params: tuple of 10 per-sphere (S,) arrays
-        (cx cy cz r mtype ar ag ab fuzz ior); mtype is i32, rest f32.
-      t_min: static epsilon.
-      rows: sublane rows per grid program (rays/program = rows*128).
-
-    Returns dict of planar (R, 128) outputs:
-      hit (i32 0/1), t, px py pz, nx ny nz, mt (i32), ar ag ab, fz, io.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    r_total = rays[0].shape[0]
-    assert r_total % rows == 0, (r_total, rows)
-    s = sphere_params[0].shape[0]
-    grid = r_total // rows
-
-    if active is None:
-        act = jnp.ones((r_total, LANES), jnp.int32)
-    else:
-        act = active.astype(jnp.int32)
-    bs = pl.BlockSpec((rows, LANES), lambda i, *_: (i, 0),
-                      memory_space=pltpu.VMEM)
-    f32 = jnp.float32
-    shapes = [jax.ShapeDtypeStruct((r_total, LANES), dt) for dt in
-              (jnp.int32, f32, jnp.int32)]
-    cx, cy, cz, r = sphere_params[:4]
-    if group_params is not None:
-        assert s % GROUP == 0, s
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=8, grid=(grid,),
-            in_specs=[bs] * 7, out_specs=[bs] * 3)
-        hit_i, t_b, s_b = pl.pallas_call(
-            functools.partial(_kernel_grouped, rows=rows,
-                              n_groups=s // GROUP, t_min=float(t_min)),
-            grid_spec=grid_spec, out_shape=shapes, interpret=interpret,
-        )(cx, cy, cz, r, *group_params, act, *rays)
-    else:
-        hit_i, t_b, s_b = closest_hit_planar(
-            rays, cx, cy, cz, r, t_min, rows=rows, interpret=interpret,
-            active=active, kernel=hit_kernel)
-
-    return resolve_segment(rays, sphere_params, hit_i, t_b, s_b)
-
-
-def resolve_params(s_b, sphere_params, oh_dtype=jnp.bfloat16):
+def resolve_params(s_b, sphere_params):
     """Winning sphere index plane -> 10 per-ray param planes.
 
-    Exact gather of the winning sphere's params WITHOUT per-ray scatter/
-    gather ops (measured ~80ns/element on v5e): a one-hot matmul on the
-    MXU. The one-hot is exact (values 0/1) in bf16 AND f32, and the
-    contraction has exactly one nonzero term per row, so the result is
-    bit-exact f32 either way; oh_dtype only changes the compute path
-    (TraceOptions.resolve "f32" drops the pred->bf16 convert).
-    (An in-kernel transposed per-row variant was measured SLOWER: 64
-    small (16,S)@(S,128) matmuls per block serialize against the VPU --
-    see ops/pallas_mega.py and ARCHITECTURE.md.)
+    params = one_hot(s_b) @ table. Each one-hot row has one 1.0, and the
+    product runs at HIGHEST precision (no TF32 rounding on the GPU), so
+    every value equals its table entry bit for bit.
 
     Returns (cx, cy, cz, r, mt_i32, ar, ag, ab, fz, io) planes.
     """
-    r_total, lanes = s_b.shape
+    shape = s_b.shape
     s = sphere_params[0].shape[0]
-    cx, cy, cz, r = sphere_params[:4]
-    table = jnp.zeros((s, TABLE_COLS), jnp.float32)
-    table = table.at[:, 0].set(cx)
-    table = table.at[:, 1].set(cy)
-    table = table.at[:, 2].set(cz)
-    table = table.at[:, 3].set(r)
-    table = table.at[:, 4].set(sphere_params[4].astype(jnp.float32))
-    for i in range(5, 10):
-        table = table.at[:, i].set(sphere_params[i])
-
-    sphere_ids = jnp.arange(s, dtype=jnp.int32)
-    oh = (s_b.reshape(-1, 1) == sphere_ids[None, :]).astype(oh_dtype)
-    # 0/1-exact one-hot against the f32 table: one nonzero term per
-    # row, so the f32 result is the table value bit-exactly.
-    params = jnp.dot(oh, table, preferred_element_type=jnp.float32)
-
-    def col(i):
-        return params[:, i].reshape(r_total, lanes)
-
-    return (col(0), col(1), col(2), col(3), col(4).astype(jnp.int32),
-            col(5), col(6), col(7), col(8), col(9))
-
-
-def resolve_params_split(s_b, sphere_params, lo_n: int = 64):
-    """resolve_params via a FACTORIZED one-hot: lo-matmul + hi-select.
-
-    params[i] = table[s_b[i]] with the (N, S) one-hot split into
-    s_b = hi * lo_n + lo: one (N, lo_n) bf16 one-hot matmul against the
-    (lo_n, hi_n * 10) re-laid table, then an hi_n-way masked select per
-    row. Bit-exact (one nonzero per one-hot row; the select picks exact
-    f32 values). Measured standalone at 32k lanes x S=489 on v5e:
-    31.7 us/iter vs 34.4 for the plain one-hot at lo_n=64 (lo_n 32/128
-    measured worse: 39.1/46.5) -- the traffic saved on the one-hot is
-    partly returned by the (N, hi_n*10) intermediate + select ladder.
-    Kept as an opt-in A/B variant; the plain matmul stays the default.
-    """
-    r_total, lanes = s_b.shape
-    s = sphere_params[0].shape[0]
-    s_pad = -(-s // lo_n) * lo_n
-    hi_n = s_pad // lo_n
-
-    table = jnp.zeros((s_pad, TABLE_COLS), jnp.float32)
-    cx, cy, cz, r = sphere_params[:4]
-    table = table.at[:s, 0].set(cx).at[:s, 1].set(cy)
-    table = table.at[:s, 2].set(cz).at[:s, 3].set(r)
-    table = table.at[:s, 4].set(sphere_params[4].astype(jnp.float32))
-    for i in range(5, 10):
-        table = table.at[:s, i].set(sphere_params[i])
-    tmat = table.reshape(hi_n, lo_n, TABLE_COLS).transpose(1, 0, 2)
-    tmat = tmat.reshape(lo_n, hi_n * TABLE_COLS)
-
-    flat = s_b.reshape(-1)
-    lo = flat % lo_n
-    hi = flat // lo_n
-    oh_lo = (lo[:, None] == jnp.arange(lo_n, dtype=jnp.int32)[None, :]
-             ).astype(jnp.bfloat16)
-    tmp = jnp.dot(oh_lo, tmat, preferred_element_type=jnp.float32)
-    tmp = tmp.reshape(-1, hi_n, TABLE_COLS)
-    out = jnp.zeros((flat.shape[0], TABLE_COLS), jnp.float32)
-    for h in range(hi_n):
-        out = jnp.where((hi == h)[:, None], tmp[:, h, :], out)
-
-    def col(i):
-        return out[:, i].reshape(r_total, lanes)
-
-    return (col(0), col(1), col(2), col(3), col(4).astype(jnp.int32),
-            col(5), col(6), col(7), col(8), col(9))
+    oh = (s_b.reshape(-1, 1) == jnp.arange(s, dtype=jnp.int32)[None, :]
+          ).astype(jnp.float32)
+    params = jnp.dot(oh, sphere_table(sphere_params),
+                     precision=jax.lax.Precision.HIGHEST,
+                     preferred_element_type=jnp.float32)
+    cols = [params[:, i].reshape(shape) for i in range(10)]
+    cols[4] = cols[4].astype(jnp.int32)
+    return tuple(cols)
 
 
 def resolve_segment(rays, sphere_params, hit_i, t_b, s_b):
@@ -907,18 +234,16 @@ def resolve_segment(rays, sphere_params, hit_i, t_b, s_b):
     }
 
 
-def trace_segment_list(rays, sphere_params, counts, lists, t_min,
-                       rows: int = 128, interpret: bool | None = None,
-                       active=None):
-    """trace_segment driven by per-block candidate lists (ops/cull.py).
+def trace_segment(rays, sphere_params, t_min, active=None):
+    """One trace segment over planar ray state.
 
-    Same outputs as trace_segment; winners are bit-identical whenever the
-    lists are conservative (they contain every possible closest hit).
+    rays: 6 planar f32 planes (ox oy oz dx dy dz); sphere_params: the 10
+    per-sphere (S,) arrays of sphere_params_from_scene; active: optional
+    bool plane. Returns a dict of planes: hit (i32 0/1), t, px py pz,
+    nx ny nz, mt (i32), ar ag ab, fz, io.
     """
     cx, cy, cz, r = sphere_params[:4]
-    hit_i, t_b, s_b = segment_closest_hit_list(
-        rays, cx, cy, cz, r, counts, lists, t_min, rows=rows,
-        interpret=interpret, active=active)
+    hit_i, t_b, s_b = closest_hit(rays, cx, cy, cz, r, t_min, active)
     return resolve_segment(rays, sphere_params, hit_i, t_b, s_b)
 
 
@@ -934,49 +259,3 @@ def sphere_params_from_scene(scene):
             scene.radii, scene.mtype[mi].astype(jnp.int32),
             alb[:, 0], alb[:, 1], alb[:, 2],
             scene.fuzz[mi], scene.ior[mi])
-
-
-def group_scene(sphere_params):
-    """Sort spheres into depth-band groups; bounding sphere per group.
-
-    Input/output: the 10-tuple from sphere_params_from_scene, reordered
-    and padded to a GROUP multiple (pads have r=0 at the origin -- by
-    Cauchy-Schwarz their discriminant is never positive, so they cannot
-    hit). Returns (sorted_params, (gx, gy, gz, gR)).
-
-    Sort key: (z-cell, x-cell) of the center -- groups become depth
-    bands, matching the narrow elevation band a coherent ray block sees.
-    All jnp (works under jit on traced scene arrays; the permutation is
-    data-dependent but shapes are static).
-    """
-    cx, cy, cz, r = sphere_params[:4]
-    s = cx.shape[0]
-    cell = 2.0
-    key = (jnp.floor(cz / cell) * 4096 + jnp.floor(cx / cell))
-    perm = jnp.argsort(key)
-    params = [jnp.take(a, perm) for a in sphere_params]
-    pad = -s % GROUP
-    if pad:
-        padded = []
-        for i, a in enumerate(params):
-            if i in (0, 1, 2):  # duplicate the last center: keeps the
-                # final group's bound tight (r=0 pads can never hit)
-                fill = jnp.broadcast_to(a[-1], (pad,)).astype(a.dtype)
-            else:
-                fill = jnp.zeros((pad,), a.dtype)
-            padded.append(jnp.concatenate([a, fill]))
-        params = padded
-    cx, cy, cz, r = params[:4]
-    n_g = cx.shape[0] // GROUP
-
-    def bounds(v):
-        return v.reshape(n_g, GROUP)
-
-    gx = (bounds(cx).min(1) + bounds(cx).max(1)) * 0.5
-    gy = (bounds(cy).min(1) + bounds(cy).max(1)) * 0.5
-    gz = (bounds(cz).min(1) + bounds(cz).max(1)) * 0.5
-    d = jnp.sqrt((bounds(cx) - gx[:, None]) ** 2
-                 + (bounds(cy) - gy[:, None]) ** 2
-                 + (bounds(cz) - gz[:, None]) ** 2)
-    gr = (d + jnp.abs(bounds(r))).max(1)
-    return tuple(params), (gx, gy, gz, gr)

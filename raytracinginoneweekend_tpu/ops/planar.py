@@ -1,18 +1,17 @@
 """Planar (R, 128) primitives shared by the wavefront and planar-AD engines.
 
-PLANAR layout is the TPU-native ray-state representation (measured on v5e,
-see ops/wavefront.py): every per-ray quantity is its own (R, 128) f32/i32
-plane, so every op is a full-width VPU op and nothing ever does a strided
-(N, 3) component extraction (~4 ms relayout at 512k rays) or a per-ray
-gather (~80 ns/element).
+PLANAR layout is the engines' ray-state representation (see
+ops/wavefront.py): every per-ray quantity is its own (R, 128) f32/i32
+plane, so every op is a full-width elementwise op and nothing ever does a
+strided (N, 3) component extraction or a per-ray gather.
 
 Two layers live here:
   * planar draws over the raw-counter contract of ops/rng.py -- the
     threefry blocks run directly on (R, 128) uint32 KEY-WORD planes
     (ops/threefry.py), so the engines carry (k0, k1) planes instead of
     typed key arrays (key_data extraction is a strided relayout; raw
-    words make every draw a full-width VPU op). Draws are bit-identical
-    to the scalar ops/rng.py API, which the oracle uses;
+    words make every draw a full-width elementwise op). Draws are
+    bit-identical to the scalar ops/rng.py API, which the oracle uses;
   * planar camera-ray generation for all four camera modes (the planar
     re-expression of models/camera.camera_ray, quirks Q1/Q2/Q11 included).
 """

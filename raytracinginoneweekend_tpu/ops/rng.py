@@ -3,9 +3,9 @@ scalar oracle.
 
 The reference uses a shared (racy) ``std::mt19937`` on CPU (main.cxx:33-36,
 SURVEY R1) and a per-pixel xorshift32 on CUDA (cuda_impl.cu:13-56, with the
-pixel-0-seed-0 degeneracy, SURVEY Q5). Neither maps to TPU: data-dependent
-rejection loops and mutable generator state break ``jit``. The TPU-native
-replacement is counter-based threefry (ops/threefry.py): every random draw
+pixel-0-seed-0 degeneracy, SURVEY Q5). Neither maps to ``jit``:
+data-dependent rejection loops and mutable generator state break it. The
+replacement here is counter-based threefry (ops/threefry.py): every random draw
 is a pure function of ``(base_key, pixel_id, sample_id, tag, word)``.
 
 This gives us, for free, the properties the reference lacks:
@@ -37,8 +37,7 @@ in-kernel RNG and ``oracle/`` all follow it):
                (strat0_scatter / planar.strat0_scatter_planes)
 
 COST is a first-class property of this contract (regen/shade RNG is the
-wavefront engine's per-iteration elementwise tax; profiled ~7% of the
-v5e headline frame under the previous fold-per-site contract): raw
+wavefront engine's per-iteration elementwise tax): raw
 counter mode uses both output words of every hash, so a bounce costs 2
 threefry blocks (fold-then-uniform cost 5: one fold + one XORed hash
 per word, jax.random's partitionable counter). The samplers map
@@ -107,20 +106,18 @@ def rr_terminate_update(k0, k1, depth, ax, ay, az, keep, *, rr_start: int,
     continuations with >= rr_start completed bounces survive with
     q = clip(rr_scale * max-channel(attenuation), rr_qmin, 1); survivors
     boost attenuation by 1/q, casualties die like absorb. Used by the
-    forward wavefront XLA step, the fixed-depth planar AD scan and the
-    regenerative AD pool (the fused Pallas kernel keeps a literal
-    in-kernel copy, pallas_fused.py -- tested bit-identical); the scalar
-    oracle re-expresses the same draw.
+    forward wavefront step, the fixed-depth planar AD scan and the
+    regenerative AD pool; the scalar oracle re-expresses the same
+    draw.
 
     k0/k1: per-ray key-word planes; depth: completed-bounce count
     (plane or traced scalar); keep: the continuation mask BEFORE rr.
-    rr_qcap (round 5, probe traces only): survival ceiling < 1 forces
+    rr_qcap (probe traces only): survival ceiling < 1 forces
     GEOMETRIC drain even on bright paths (the default rule gives q = 1
     whenever a channel's attenuation >= 1/rr_scale, so a batch of N
     probes always carries some lane to full depth and trace_fast's
-    any-alive exit never fires -- measured, docs/FIT_r05.json). Still
-    the same unbiased RR (survivors boost 1/q); the forward engines and
-    the in-kernel pallas copy keep the 1.0 default.
+    any-alive exit never fires). Still the same unbiased RR (survivors
+    boost 1/q); the forward engines keep the 1.0 default.
     stop_grad (AD callers): hold q constant so the weighted estimator's
     gradient is RR applied to the gradient integrand -- E[1{surv}
     grad f / q] = grad E[f] for any measurable q -- while a

@@ -2,7 +2,7 @@
 
 The reference dispatches materials through a tagged union -- ``std::visit``
 on CPU (raytracer.hxx:128-198) and a custom device variant on CUDA
-(cuda_impl.cu:194-263, include/variant/*; SURVEY #12/#16). On TPU the whole
+(cuda_impl.cu:194-263, include/variant/*; SURVEY #12/#16). Here the whole
 wavefront evaluates all three BSDFs and selects by the integer material
 type: three cheap elementwise branches, no divergence, and -- crucially --
 everything stays differentiable w.r.t. albedo/fuzz/ior.

@@ -103,8 +103,8 @@ TAG_EDGE2_DEPTH = 108  # + vertex_depth: per-depth key split (render_loss)
 
 # Default deep-inside-probe depth (fraction of the projected radius) for
 # DIELECTRIC rim probes (one constant so the two surrogate modules and
-# branchprob's ablation-only grazing gate can never silently diverge --
-# ADVICE r4). NOTE: the r4 "ownership gate" built on this band was
+# branchprob's ablation-only grazing gate can never silently diverge).
+# NOTE: the "ownership gate" once built on this band was
 # refuted by the CRN study (docs/RIM_OWNERSHIP_r05.json); render_loss
 # never gates, and this constant only sets the probe depth default.
 PROBE_DIEL_FRAC = 0.15
@@ -112,7 +112,7 @@ PROBE_DIEL_FRAC = 0.15
 
 def _probe_options(options: TraceOptions) -> TraceOptions:
     """Options for the surrogates' DETACHED probe traces: Russian-
-    roulette termination forced ON (round 5, VERDICT r4 #2).
+    roulette termination forced ON.
 
     The probe radiance enters every surrogate LINEARLY (an f_in - f_out
     step times detached weights), so any unbiased estimator of it leaves
@@ -122,8 +122,7 @@ def _probe_options(options: TraceOptions) -> TraceOptions:
     batches (e.g. 489 spheres x 512 edges x 2 probes at depth 50) always
     carry at least one live lane to full depth, so trace_fast's
     any-alive exit never fires and the probe traces dominate the
-    full-surrogate train step (docs/FIT_r05.json: the three surrogate
-    phases cost 20x interior AD). With RR the whole batch drains in
+    full-surrogate train step. With RR the whole batch drains in
     ~rr_start + O(log N) bounces. Each probe PAIR shares its key, so RR
     decisions stay common-random-number paired like every other draw.
     """
@@ -358,9 +357,8 @@ def boundary_surrogate(scene: Scene, cam: Camera, camera_mode: str,
         eye = cam.origin + lens_off
         cpu_rd = None
     elif camera_mode == "cpu" and not _cpu_central_ablation:
-        # Quirk-Q2 aperture integration (round 5; closes the last
-        # unmeasured approximation of the compat surface, VERDICT r4
-        # #7): the CPU path's defocus draws a unit-BALL sample rd and
+        # Quirk-Q2 aperture integration: the CPU path's defocus draws a
+        # unit-BALL sample rd and
         # scales the WORLD-axis offset by the ray's own screen coords
         # (camera.hxx:51-56): off(u, v) = (u*rd.x, v*rd.y, 0) *
         # lens_radius, origin += off, direction = film(u, v) - off. The

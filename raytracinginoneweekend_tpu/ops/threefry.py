@@ -1,13 +1,11 @@
 """Threefry-2x32 reimplemented as plain uint32 arithmetic.
 
 Why this exists: the renderer's RNG contract (ops/rng.py) is built on
-JAX's threefry2x32, which XLA lowers as ~100 integer VPU ops per hash.
-That is fine at the XLA level, but the wavefront megakernel
-(ops/pallas_segment.py) wants to draw its per-bounce randomness INSIDE
-the Pallas kernel -- where jax.random does not exist. Threefry is just
-adds/xors/rotates, so this module provides the hash as jnp-on-arrays
-code that lowers identically under XLA *and* Mosaic (kernels), scalars
-*and* (R, 128) planes.
+JAX's threefry2x32, but the planar engines draw on raw uint32 key-word
+planes (no typed key arrays), and a kernel has no jax.random. Threefry
+is just adds/xors/rotates, so this module provides the hash as
+jnp-on-arrays code that works on scalars *and* (R, 128) planes, under
+XLA or inside a Pallas kernel.
 
 Bit-compatibility: ``threefry2x32`` here is bit-identical to JAX's
 ``jax._src.prng.threefry_2x32`` block function (verified in

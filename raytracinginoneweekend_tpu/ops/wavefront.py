@@ -8,33 +8,27 @@ the shipped scenes). This engine keeps a persistent pool of P ray lanes at
 next unconsumed (pixel, sample) camera ray, all lanes trace one bounce
 segment together, and terminating rays deposit into the framebuffer.
 
-TPU-native design decisions (all measured on v5e, see git history):
+Design decisions:
   * PLANAR ray state: every per-ray quantity is its own (R, 128) f32/i32
-    plane. (N, 3) xyz arrays force strided component extraction
-    (relayouts) and tempt XLA into per-ray gathers; planes make every op
-    a full-width VPU op.
-  * The whole intersect + hit-surface + material lookup is ONE Pallas
-    megakernel (ops/pallas_segment.py) that carries the best sphere's
-    geometry/material through its running min -- zero per-ray gathers
-    (measured ~80ns/gather = ~40ms/bounce at 512k rays, vs ~1ms for the
-    fused kernel).
+    plane, so every op is a full-width elementwise op and no (N, 3)
+    component extraction is ever needed.
+  * Closest hit + winner resolve is one trace segment
+    (ops/pallas_segment.trace_segment: the Triton kernel on the GPU, the
+    XLA version elsewhere); shading, state update and regeneration are
+    plain XLA fusions around it.
   * Lane regeneration is strided, not compacted: lane l owns global ray
     ids l, l+P, l+2P, ... and advances independently -- no cumsum/prefix
-    ranks (lane-crossing scans measured ~30ms at 512k) and no
-    inter-lane communication at all. (options.ownership="tile" swaps in
-    block-contiguous tile-swizzled ownership -- the coherent layout for
-    hit_kernel="sorted"; bit-identical images, see TraceOptions.)
+    ranks and no inter-lane communication at all. (options.ownership=
+    "tile" swaps in block-contiguous tile-swizzled ownership; images are
+    bit-identical, see TraceOptions.)
   * Framebuffer deposit: a TASK-INDEXED LEDGER, not pixel scatter-adds.
     Because task ownership is strided, every task has a statically-known
     unique slot ledger[k, lane] (task id = k*stride + lane0), so the
     epoch flush is a one-hot ELEMENTWISE update of the (K, R, 128)
-    ledger -- pure VPU + HBM streaming, no scatter -- and the frame-end
-    fold to pixels is a static reshape+sum (task id // tpp is a
-    contiguous-run map). v5e scatter-add costs ~7.8 ns x CALL SIZE
-    (~1.5 ms per 64k x 3 flush, 14% of the headline frame); the ledger
-    pass streams 2x its own bytes instead (~0.2 ms at K=103) and makes
-    EXTRA PENDING SLOTS nearly free, which removes the engine's
-    pending-stall idle (measured 24% of lane-slots with one slot).
+    ledger -- no scatter -- and the frame-end fold to pixels is a static
+    reshape+sum (task id // tpp is a contiguous-run map). Extra pending
+    slots are then nearly free, which removes the engine's pending-stall
+    idle.
 
 RNG discipline is EXACTLY ops/rng.py's (pixel, sample, tag, word)
 contract -- raw threefry blocks on (R, 128) key-word planes
@@ -53,19 +47,17 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..config import TraceOptions
+from ..config import POOL_SIZE, TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
-from .pallas_segment import (resolve_segment, segment_closest_hit_sorted,
-                             sorted_cull_state, sphere_params_from_scene,
-                             trace_segment)
+from .pallas_segment import sphere_params_from_scene, trace_segment
 
 LANES = 128
 
 
 # Planar RNG/vector helpers, camera-ray generation and the per-bounce
 # material/sky shading live in ops/planar.py (shared with the planar-AD
-# and dual-pool engines).
+# engine).
 from .planar import (bounce_planar as _bounce,  # noqa: E402
                      camera_rays as _planar_camera_rays,
                      strat0_scatter_planes)
@@ -77,16 +69,6 @@ from .planar import (bounce_planar as _bounce,  # noqa: E402
 TASK_SAMPLES = 16  # samples of one pixel accumulated per task (in-register)
 FLUSH_EVERY = 32   # inner iterations per epoch (pending->ledger cadence)
 N_SLOTS = 2        # pending slots per lane (task-done buffering)
-# (16, 32) measured best under scatter deposits (40.5 Mrays/s): longer
-# tasks lose occupancy faster than they save scatters ((32,16): 27.9,
-# (32,64): 33.6), shorter tasks under long epochs hit pending contention
-# ((8,32): 36.0). The ledger deposit decouples flush cost from slot
-# count, so 2 slots absorb the ~1.9 completions/epoch of sky-dominated
-# tasks that used to stall 24% of lane-slots. Re-measured round 4 on
-# the headline: flush_every 32/16/8 -> 58.04/57.39/56.49 Mrays/s at
-# occupancy .8965/.8991/.8991 -- the epoch-grain while-exit
-# quantization is worth <0.3% occupancy and finer flushes cost more
-# than they recover (32 stays).
 
 # Ledger auto-deposit cap: a frame's task count must fit 3 f32 ledger
 # channels under this budget, else the engine falls back to pixel
@@ -94,16 +76,14 @@ N_SLOTS = 2        # pending slots per lane (task-done buffering)
 LEDGER_CAP_BYTES = 512 << 20
 
 
-ROWS_DEFAULT = 64  # kernel rows per block (8192-lane programs; measured
-# fastest on v5e (r64 < r128 < r256 by 6%/22% on the segment loop) and
-# it halves the granularity of the drained-block skip)
+ROWS_DEFAULT = 64  # rows of 128 lanes: pools are multiples of 8192 lanes
 
 # Lane-state layout: 19 base planes, then 4 planes per pending slot.
 #   0 nxt   1 task   2 sid   3 active
 #   4..9  ox oy oz dx dy dz
 #   10..12 ax ay az    13 depth
 #   14..16 accr accg accb
-#   17 k0  18 k1  (per-ray threefry key words; carried by mega="fused")
+#   17 k0  18 k1  (per-ray threefry key words)
 #   19+4j .. 22+4j: slot j = (pt, pr, pg, pb); pt = finished TASK id,
 #                   -1 = free.
 N_BASE = 19
@@ -123,7 +103,7 @@ def pool_lanes(pool_size: int, width: int, height: int, spp: int,
 
 def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
                  height: int, spp: int, max_depth: int, camera_mode: str,
-                 options: TraceOptions, pool_size: int = 1 << 15,
+                 options: TraceOptions, pool_size: int = POOL_SIZE,
                  worker_index=0, n_workers: int = 1,
                  task_samples: int | None = None,
                  flush_every: int | None = None,
@@ -138,11 +118,7 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
     balances load (each lane's tasks sample the whole image) and keeps a
     kernel block's in-flight tasks CONTIGUOUS at any instant (block b
     holds tasks [w*P + b*BL + k*stride, ...+BL) while its lanes stay near
-    the same round k) -- the spatial coherence that sphere-group culling
-    exploits, for free. (A chunked-per-block variant was measured 20%
-    slower: per-lane regen/RNG/scatter work cannot skip drained blocks,
-    so inflating the iteration count to the worst chunk loses more than
-    the kernel skip saves.) worker_index may be a traced scalar
+    the same round k). worker_index may be a traced scalar
     (jax.lax.axis_index); n_workers must be static.
 
     Work decomposition:
@@ -186,7 +162,7 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
     tiled_own = options.ownership == "tile"
     if tiled_own:
         # Tile ownership (see TraceOptions.ownership): tasks run over the
-        # 32x32-tile virtual pixel grid (ops/cull.py closed forms); each
+        # 32x32-tile virtual pixel grid (ops/tiles.py closed forms); each
         # closest-hit kernel block owns a CONTIGUOUS tile-order range of
         # T_b tasks, strided by the block's lane count within it. T_b is
         # a multiple of lcm(OWN_BL, tpp) so (a) every ledger cell is
@@ -196,10 +172,9 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
         # image trace normally (<2% waste) and drop at the fold.
         import math as _math
 
-        from .cull import TILE, tile_pixel, virtual_grid
+        from .tiles import TILE, tile_pixel, virtual_grid
         tiles_x, tiles_y, n_vp = virtual_grid(width, height)
-        own_bl = (options.sorted_rows or rows) * LANES
-        own_bl = min(own_bl, p)
+        own_bl = min(rows * LANES, p)
         assert p % own_bl == 0, (p, own_bl)
         nb_local = p // own_bl
         nb_global = n_workers * nb_local
@@ -238,22 +213,8 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
                    else "scatter")
     if deposit not in ("ledger", "scatter"):
         raise ValueError(f"unknown deposit mode: {deposit!r}")
-    if options.rr_terminate and options.mega == "bounce":
-        raise ValueError(
-            "rr_terminate is implemented for mega='fused' and mega='off' "
-            "only (the whole-bounce megakernel is a measured-negative "
-            "variant kept for ablation)")
-    if tiled_own and options.mega == "bounce":
-        raise ValueError("ownership='tile' is implemented for mega='fused' "
-                         "and mega='off' only")
 
     sphere_params = sphere_params_from_scene(scene)
-    # Sphere-group culling (pallas_segment.group_scene) measured net
-    # NEGATIVE here: in-flight lanes drift across tasks and 2/3 of
-    # segments are direction-scattered secondaries, so depth-band bounds
-    # rarely cull while every group pays the bound test + branch. The
-    # grouped kernel stays available for coherent workloads.
-    group_params = None
     lane = (jax.lax.broadcasted_iota(jnp.int32, (r_rows, LANES), 0) * LANES
             + jax.lax.broadcasted_iota(jnp.int32, (r_rows, LANES), 1))
     if tiled_own:
@@ -275,13 +236,6 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
     sky_bias = 0.5 if options.sky == "cuda" else 1.0
     unit_sample = options.scatter_sample == "unit"
     phys_refract = options.refract == "physical"
-
-    if options.mega == "fused":
-        from . import threefry as tf
-        from .pallas_fused import pack_camera
-        camvec = pack_camera(cam)
-        b0, b1 = tf.key_words(base_key)
-        base_words = jnp.stack([b0, b1]).astype(jnp.uint32)
 
     use_sfb = use_reserve and deposit == "ledger"
 
@@ -448,40 +402,13 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
                 ax, ay, az, depth, accr, accg, accb, rk0, rk1,
                 *(pl_ for s in new_slots for pl_ in s))
 
-    def segment(state, sortstate=None):
+    def segment(state):
         (nxt, task, sid, active, ox, oy, oz, dx, dy, dz, ax, ay, az,
          depth, accr, accg, accb, rk0, rk1) = state[:N_BASE]
         slot_planes = state[N_BASE:]
 
-        if options.mega == "bounce":
-            # Whole bounce (intersect + resolve + RNG + shade + state
-            # update) as ONE Pallas program -- ops/pallas_mega.py.
-            from .pallas_mega import mega_bounce
-
-            (ox, oy, oz, dx, dy, dz, ax, ay, az, accr, accg, accb,
-             keep, depth) = mega_bounce(
-                (active, ox, oy, oz, dx, dy, dz, ax, ay, az,
-                 accr, accg, accb, depth, rk0, rk1), sphere_params,
-                t_min=options.t_min, rows=rows, max_depth=max_depth,
-                unit_sample=unit_sample, phys_refract=phys_refract,
-                sky_bias=sky_bias)
-            return (nxt, task, sid, keep, ox, oy, oz, dx, dy, dz,
-                    ax, ay, az, depth, accr, accg, accb, rk0, rk1,
-                    *slot_planes)
-
-        if sortstate is not None:
-            cx, cy, cz, r = sphere_params[:4]
-            hit_i, t_b, s_b = segment_closest_hit_sorted(
-                (ox, oy, oz, dx, dy, dz), cx, cy, cz, r, sortstate,
-                options.t_min, rows=sorted_rows, active=active,
-                ladder=options.sorted_ladder)
-            seg = resolve_segment((ox, oy, oz, dx, dy, dz), sphere_params,
-                                  hit_i, t_b, s_b)
-        else:
-            seg = trace_segment((ox, oy, oz, dx, dy, dz), sphere_params,
-                                options.t_min, rows=rows, active=active,
-                                group_params=group_params,
-                                hit_kernel=options.hit_kernel)
+        seg = trace_segment((ox, oy, oz, dx, dy, dz), sphere_params,
+                            options.t_min, active=active)
         hit = seg["hit"] > 0
         alr, alg, alb_ = seg["ar"], seg["ag"], seg["ab"]
 
@@ -533,51 +460,6 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
         return (nxt, task, sid, keep, ox, oy, oz, dx, dy, dz,
                 ax, ay, az, depth, accr, accg, accb, rk0, rk1,
                 *slot_planes)
-
-    def fused_step(state, sortstate=None):
-        # ROTATED body (options.mega == "fused"): closest-hit kernel ->
-        # XLA MXU one-hot resolve -> fused shade+state+regen Pallas
-        # program (ops/pallas_fused.py). The initial regen runs once as
-        # a prologue below; per-ray semantics are unchanged (draws are
-        # keyed by (pixel, sample, bounce), not engine iteration).
-        from .pallas_fused import shade_regen
-        from .pallas_segment import (closest_hit_planar, resolve_params,
-                                     resolve_params_split)
-
-        (ox, oy, oz, dx, dy, dz) = state[4:10]
-        active = state[3]
-        cx, cy, cz, r = sphere_params[:4]
-        if sortstate is not None:
-            hit_i, t_b, s_b = segment_closest_hit_sorted(
-                (ox, oy, oz, dx, dy, dz), cx, cy, cz, r, sortstate,
-                options.t_min, rows=sorted_rows, active=active,
-                ladder=options.sorted_ladder)
-        else:
-            hit_i, t_b, s_b = closest_hit_planar(
-                (ox, oy, oz, dx, dy, dz), cx, cy, cz, r, options.t_min,
-                rows=rows, active=active, kernel=options.hit_kernel)
-        if options.resolve == "split":
-            params = resolve_params_split(s_b, sphere_params)
-        elif options.resolve == "f32":
-            params = resolve_params(s_b, sphere_params,
-                                    oh_dtype=jnp.float32)
-        else:
-            params = resolve_params(s_b, sphere_params)
-        tile_kw = {}
-        if tiled_own:
-            tile_kw = dict(own_bl=own_bl, t_b=own_tb, tiles_x=tiles_x,
-                           worker_base=worker_index * nb_local * own_tb)
-        return shade_regen(
-            state, (hit_i, t_b), params, camvec, base_words,
-            rows=rows, max_depth=max_depth, unit_sample=unit_sample,
-            phys_refract=phys_refract, sky_bias=sky_bias, width=width,
-            height=height, spp=spp, task_samples=task_samples, tpp=tpp,
-            n_tasks=(n_tasks if tiled_own else owned_end),
-            n_slots=n_slots, stride=stride,
-            camera_mode=camera_mode, rr_terminate=options.rr_terminate,
-            rr_start=options.rr_start, rr_qmin=options.rr_qmin,
-            rr_scale=options.rr_scale, sampling=options.sampling,
-            **tile_kw)
 
     if use_reserve:
         res_start = owned_end + worker_index * res_per_worker
@@ -642,60 +524,30 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
             more = more | (state[-1][0] < res_end_w)
         return more
 
-    use_sorted = options.hit_kernel == "sorted"
-    sorted_rows = options.sorted_rows or rows
-    if use_sorted and options.mega == "bounce":
-        raise ValueError("hit_kernel='sorted' is implemented for "
-                         "mega='fused' and mega='off' only")
+    def body(s):
+        return segment(regen(s))
 
-    if options.mega == "fused":
-        body = fused_step
-    else:
-        body = lambda s, ss=None: segment(regen(s), ss)  # noqa: E731
-
-    if return_stats:
-        # Count lanes that TRACE each iteration (uint32: fine to ~4.2G
-        # segments). The fused body's entry state is post-regen (rotated
-        # loop); the XLA body regens first, so count between the halves.
-        if options.mega == "fused":
-            def body_c(s, n, ss=None):
-                return body(s, ss), n + jnp.sum(s[3].astype(jnp.uint32))
-        else:
-            def body_c(s, n, ss=None):
-                s2 = regen(s)
-                return (segment(s2, ss),
-                        n + jnp.sum(s2[3].astype(jnp.uint32)))
-    else:
-        body_c = None
+    def body_c(s, n):
+        # Count the lanes that TRACE each iteration (uint32: fine to
+        # ~4.2G segments).
+        s2 = regen(s)
+        return segment(s2), n + jnp.sum(s2[3].astype(jnp.uint32))
 
     def epoch(state):
-        # EPOCH structure (profiled on v5e): the deposit arrays live
-        # ONLY in this outer body. Carrying them through a per-iteration
-        # flush `cond` measured 96us/iteration of pure operand copies --
-        # 23% of the whole engine -- and per-iteration flush amortization
-        # another 23%. The inner fori_loop touches lane state only; the
-        # flush runs unconditionally once per epoch.
+        # EPOCH structure: the deposit arrays live ONLY in this outer
+        # body, so the inner fori_loop carries lane state only (a
+        # per-iteration flush would copy the deposit arrays through
+        # every iteration); the flush runs once per epoch.
         lane_state, dep_r, dep_g, dep_b = state[:4]
-        if use_sorted:
-            # Per-block sphere ordering + early-exit bounds, refreshed
-            # once per epoch from the CURRENT lane origins (staleness
-            # within the epoch loosens but never breaks the bounds --
-            # the kernel measures |o - O_c| fresh against this O_c).
-            sortstate = sorted_cull_state(
-                lane_state[3], lane_state[4:7], *sphere_params[:4],
-                rows=sorted_rows)
-        else:
-            sortstate = None
         if return_stats:
             iters, segs = state[4:6]
             lane_state, segs = jax.lax.fori_loop(
-                0, flush_every, lambda i, c: body_c(*c, sortstate),
+                0, flush_every, lambda i, c: body_c(*c),
                 (lane_state, segs))
             iters = iters + jnp.uint32(flush_every)
         else:
             lane_state = jax.lax.fori_loop(
-                0, flush_every, lambda i, s: body(s, sortstate),
-                lane_state)
+                0, flush_every, lambda i, s: body(s), lane_state)
         slots = [tuple(lane_state[N_BASE + 4 * j: N_BASE + 4 * (j + 1)])
                  for j in range(n_slots)]
         sfb = state[-1][1:] if use_sfb else None
@@ -732,13 +584,8 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
         zero, zero, zero,     # attenuation
         izero,                # depth
         zero, zero, zero,     # task accumulator
-        uzero, uzero,         # per-ray key words (carried by "fused")
+        uzero, uzero,         # per-ray key words
     ) + slot0 * n_slots
-    if options.mega == "fused":
-        # Prologue: the rotated body regenerates AFTER shading, so the
-        # initial task acquisition + camera rays run once up front (the
-        # XLA regen is bit-identical to the in-kernel one).
-        lane_state0 = regen(lane_state0)
     init = (lane_state0, dep0, dep0, dep0)
     if return_stats:
         init = init + (jnp.uint32(0), jnp.uint32(0))
@@ -770,7 +617,7 @@ def wavefront_fb(scene: Scene, cam: Camera, base_key, *, width: int,
 def render_wavefront(scene: Scene, cam: Camera, base_key, *, width: int,
                      height: int, spp: int, max_depth: int,
                      camera_mode: str, options: TraceOptions,
-                     pool_size: int = 1 << 15,
+                     pool_size: int = POOL_SIZE,
                      task_samples: int | None = None,
                      flush_every: int | None = None,
                      pending_slots: int | None = None,

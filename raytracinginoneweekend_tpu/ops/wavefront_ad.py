@@ -14,14 +14,13 @@ termination of the bounce loop (main.cxx:60-74, cuda_impl.cu:275-296):
 a terminated thread costs nothing there; a terminated lane here hands
 its slot to the next (pixel, sample) task.
 
-Design (all TPU-shaped):
+Design:
 
-  * Lane pool of L = rows*128 planar lanes; lane l owns rays
+  * Lane pool of L = R*128 planar lanes; lane l owns rays
     l, l+L, 2L, ... (the forward engine's strided ownership -- balanced,
     zero cross-lane communication). The (pixel, sample) ids of all N
     rays are precomputed into (W, R, 128) wave planes (W = ceil(N/L));
-    regeneration reads them with a W-way one-hot select -- NO gathers
-    (v5e gathers measured ~80 ns/element).
+    regeneration reads them with a W-way one-hot select -- no gathers.
   * Radiance deposit: a WAVE-INDEXED LEDGER (W, R, 128) per channel.
     Ray (w, lane) has the statically-unique slot ledger[w, lane], so a
     deposit is a one-hot ELEMENTWISE masked add over the wave axis --
@@ -38,13 +37,15 @@ Design (all TPU-shaped):
     differentiable analogue of the forward engine's while_loop exit.
     (A fixed-trip scan without the cond would pay FULL price for every
     budgeted iteration and lose to the fixed-depth engine.)
-  * The closest hit is the Pallas segment kernel under the analytic
-    implicit-function custom VJP (integrate_planar.closest_hit_planar);
-    the per-lane material fetch is the exact bf16 one-hot matmul
-    (integrate_planar._onehot_gather). The scatter/sky math is the
-    SHARED scatter_planar_ad/shade_geometry_planar code and the
+  * The closest hit is ops/pallas_segment.closest_hit under the
+    analytic implicit-function custom VJP
+    (integrate_planar.closest_hit_planar); the per-lane material fetch
+    is the exact one-hot matmul (integrate_planar._onehot_gather).
+    The scatter/sky math is the SHARED
+    scatter_planar_ad/shade_geometry_planar code and the
     per-pixel mean reduces in the same sample order, so rendered
-    pixels are BIT-invariant to pool_size (measured) and match
+    pixels are BIT-invariant to pool_size (with one closest-hit
+    implementation) and match
     render_pixels_planar to ~1e-6 -- the residue is instruction-level
     (XLA contracts mul+add chains into FMAs differently in the two
     program contexts), the same class of difference as the forward
@@ -67,9 +68,9 @@ from ..config import TraceOptions
 from ..models.camera import Camera
 from ..models.scene import Scene
 from . import planar
-from .integrate_planar import (_material_table, _onehot_gather, _pick_rows,
-                               closest_hit_planar, scatter_planar_ad,
-                               shade_geometry_planar)
+from .integrate_planar import (ROW_MULTIPLE, _material_table,
+                               _onehot_gather, closest_hit_planar,
+                               scatter_planar_ad, shade_geometry_planar)
 # The reference sky constants live in ops/planar.py (main.cxx:49,
 # cuda_impl.cu:125); imported rather than re-pinned -- the fixed-depth
 # scan and this pool are documented bit-comparable.
@@ -78,6 +79,9 @@ from .planar import SKY_BLUE, SKY_WHITE
 LANES = 128
 
 EPOCH_LEN = 16  # inner bounces per rematerialized epoch
+# Default lanes in flight: 2^15 beat 2^17 on the H100's flagship train
+# step by 2x (PERF.md); 2^16 is unmeasured.
+POOL_SIZE = 1 << 15
 
 # Lane-state tuple layout (all (R, 128) planes):
 #   0 nxtw  (i32)  next wave index this lane may acquire
@@ -247,7 +251,7 @@ _NOREMAT_CAP_BYTES = 1536 << 20
 def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
                        base_key, *, width: int, height: int, spp: int,
                        max_depth: int, camera_mode: str,
-                       options: TraceOptions, n: int, rows: int,
+                       options: TraceOptions, n: int,
                        epoch_len: int = EPOCH_LEN,
                        iters: int | None = None, remat: str = "auto",
                        return_done: bool = False):
@@ -262,12 +266,9 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
         bounces under jax.checkpoint, each epoch wrapped in
         lax.cond(work left) -- budgeted-but-unneeded epochs are skipped.
         Safe for any scene, but the skipped tail is NOT free under AD
-        (measured ~0.27 ms/epoch in the backward at 8k lanes: cond
-        linearization + outer-scan carry churn).
-      * an int = a TUNED budget run as ONE FLAT scan (no cond): measured
-        20.9 -> 18.4 ms/step (remat="step") and -> 12.2 ms/step
-        (remat="none") on the flagship train step vs the epoch+cond
-        structure at the same budget. Rays not finished within the
+        (cond linearization + outer-scan carry churn per epoch).
+      * an int = a TUNED budget run as ONE FLAT scan (no cond, no
+        per-epoch cost). Rays not finished within the
         budget are dropped from the ledger (they contribute black);
         validate a budget with ``wavefront_ad_done`` or by image parity
         against the fixed-depth engine.
@@ -297,7 +298,7 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
         state, ledger = carry
         state, psid = regen(state)
         khit = closest_hit_planar(state[3:9], (scene.centers, scene.radii),
-                                  options.t_min, rows)
+                                  options.t_min)
         state, ledger = shade(state, khit, ledger, strat_psid=psid)
         return (state, ledger), None
 
@@ -350,7 +351,7 @@ def trace_wavefront_ad(scene: Scene, cam: Camera, pid_waves, sid_waves,
 
 
 def _wave_layout(pixel_ids, spp: int, pool_size: int):
-    """(pid_waves, sid_waves, rows, n): the engine's wave-major ray
+    """(pid_waves, sid_waves, n): the engine's wave-major ray
     layout -- the ONE definition of the ray ordering/padding invariant
     (ray-major pixel*spp + sample, pool rounded to the kernel block
     multiple and capped at the ray count, only the LAST wave padded).
@@ -358,8 +359,7 @@ def _wave_layout(pixel_ids, spp: int, pool_size: int):
     validate different layouts."""
     p = pixel_ids.shape[0]
     n = p * spp
-    rows = _pick_rows(min(n, pool_size))
-    blk = rows * LANES
+    blk = ROW_MULTIPLE * LANES
     lanes = min(pool_size, n)
     lanes = -(-lanes // blk) * blk
     r_rows = lanes // LANES
@@ -372,14 +372,14 @@ def _wave_layout(pixel_ids, spp: int, pool_size: int):
         pid_flat = jnp.concatenate([pid_flat, jnp.zeros((pad,), jnp.int32)])
         sid_flat = jnp.concatenate([sid_flat, jnp.zeros((pad,), jnp.int32)])
     return (pid_flat.reshape(w, r_rows, LANES),
-            sid_flat.reshape(w, r_rows, LANES), rows, n)
+            sid_flat.reshape(w, r_rows, LANES), n)
 
 
 def render_pixels_wavefront_ad_impl(scene: Scene, cam: Camera, pixel_ids,
                                     base_key, *, width: int, height: int,
                                     spp: int, max_depth: int,
                                     camera_mode: str, options: TraceOptions,
-                                    pool_size: int = 1 << 15,
+                                    pool_size: int = POOL_SIZE,
                                     epoch_len: int = EPOCH_LEN,
                                     iters: int | None = None,
                                     remat: str = "auto",
@@ -393,27 +393,27 @@ def render_pixels_wavefront_ad_impl(scene: Scene, cam: Camera, pixel_ids,
     block multiple, capped at the ray count); iters/remat: see
     trace_wavefront_ad (None = guaranteed-complete worst case).
 
-    WARNING (ADVICE r4): with a TUNED integer ``iters`` budget, rays
+    WARNING: with a TUNED integer ``iters`` budget, rays
     not finished within the budget are silently dropped from the ledger
     and render BLACK -- a stale budget (scene/key drift, e.g. params
     moving under training) degrades images and gradients with no error.
     Validate tuned budgets with ``wavefront_ad_done`` /
-    ``wavefront_ad_budget`` (pad by whole epochs; scripts/bench_fit.py's
-    ``check_end_budget`` shows the post-training re-validation pattern),
-    or pass ``debug_check_complete=True`` to run the done-flag check in
+    ``wavefront_ad_budget`` (pad by whole epochs, and re-validate after
+    training moves the parameters), or pass
+    ``debug_check_complete=True`` to run the done-flag check in
     the same compiled program and report a drop at runtime
     (forward-only probe; costs one extra budget-length scan, so it is a
     debug tool, not a production default).
     """
     del differentiable
     p = pixel_ids.shape[0]
-    pid_waves, sid_waves, rows, n = _wave_layout(pixel_ids, spp,
+    pid_waves, sid_waves, n = _wave_layout(pixel_ids, spp,
                                                  pool_size)
 
     lr, lg, lb = trace_wavefront_ad(
         scene, cam, pid_waves, sid_waves, base_key, width=width,
         height=height, spp=spp, max_depth=max_depth,
-        camera_mode=camera_mode, options=options, n=n, rows=rows,
+        camera_mode=camera_mode, options=options, n=n,
         epoch_len=epoch_len, iters=iters, remat=remat)
 
     if debug_check_complete and iters is not None:
@@ -421,7 +421,7 @@ def render_pixels_wavefront_ad_impl(scene: Scene, cam: Camera, pixel_ids,
             jax.tree.map(jax.lax.stop_gradient, scene), cam, pid_waves,
             sid_waves, base_key, width=width, height=height, spp=spp,
             max_depth=max_depth, camera_mode=camera_mode,
-            options=options, n=n, rows=rows, iters=iters, remat="step",
+            options=options, n=n, iters=iters, remat="step",
             return_done=True)
         jax.lax.cond(
             done,
@@ -452,12 +452,12 @@ render_pixels_wavefront_ad = jax.jit(
 def _probe(scene: Scene, cam: Camera, pixel_ids, base_key, *, width: int,
            height: int, spp: int, max_depth: int, camera_mode: str,
            options: TraceOptions, pool_size: int, iters: int | None):
-    pid_waves, sid_waves, rows, n = _wave_layout(pixel_ids, spp,
+    pid_waves, sid_waves, n = _wave_layout(pixel_ids, spp,
                                                  pool_size)
     _, aux = trace_wavefront_ad(
         scene, cam, pid_waves, sid_waves, base_key, width=width,
         height=height, spp=spp, max_depth=max_depth,
-        camera_mode=camera_mode, options=options, n=n, rows=rows,
+        camera_mode=camera_mode, options=options, n=n,
         iters=iters, remat="step", return_done=True)
     return aux
 

@@ -86,17 +86,15 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
     per depth. rr_grad_arms (-> branchprob.chain_rr_arms) is its COST
     POLICY knob: how many internal-RR reflection arms of the refract
     chain get their own side-chain edge term. The delta-lobe term is the
-    dominant phase of the full-surrogate flagship train step (48%,
-    docs/FIT_r05.json) and each arm costs ~21% of that phase (measured
-    at flagship scale: 108/149/186 ms per grad-eval at arms 0/1/2,
-    docs/RR_ARMS_COST_r05.json); drop to 1 or 0 on scenes without
-    internally-reflected visible content (the arms' accuracy ground:
+    costliest surrogate phase and each arm adds its own probe traces;
+    drop to 1 or 0 on scenes without internally-reflected visible
+    content (the arms' accuracy ground:
     test_internal_rr_reflection_arm_matches_finite_differences).
 
     engine: "auto" (default -- resolve_ad_engine picks by max_depth:
-    the fixed-depth planar scan below the measured depth-32 crossover,
-    the regenerative wavefront pool above it), "planar" ((R, 128)
-    planes + Pallas closest-hit with the analytic custom VJP,
+    the fixed-depth planar scan up to AD_ENGINE_AUTO_DEPTH, the
+    regenerative wavefront pool above it), "planar" ((R, 128) planes +
+    the closest-hit kernel with the analytic custom VJP,
     ops/integrate_planar.py), "wavefront" (ops/wavefront_ad.py), or
     "tiled" (the (N, 3) scan engine). Same RNG contract, radiance
     agrees to f32 reassociation.
@@ -123,27 +121,23 @@ def render_loss(params: dict, scene: Scene, cam: Camera, target_pixels,
 AD_ENGINE_AUTO_DEPTH = 32
 """max_depth above which 'auto' picks the regenerative wavefront engine.
 
-Measured crossover on v5e (huge scene, 1200x800 camera, 16384 px x 8 spp,
-default engine opts both sides; docs/AD_DEPTH_SWEEP_r04.json +
-docs/FIT_r04.json): the fixed-depth planar scan wins 2.5x at depth 4,
-2.4x at 8, 1.8x at 16, and reaches breakeven at 32 (0.96x); at the
-depth-50 flagship the regenerative pool wins 1.26x on its guaranteed
-worst-case budget (1.70x with a probed iteration budget). The pool's
-~13 ms fixed structure cost (ledger + epoch cond + wave one-hot regen)
-amortizes only once fixed-depth lane waste exceeds it."""
+Measured on an H100 (power limit 400 W; huge scene, 1200x800 camera,
+16384 px x 8 spp, interior step, each engine with the closest hit it
+selects; PERF.md): planar / regenerative 21.9 / 36.9 ms at depth 16,
+41.8 / 48.0 ms at 32, 64.0 / 60.5 ms at 50 -- the crossover lies
+between 32 and 50. The fixed-depth planar scan pays every bounce for
+every lane; the regenerative pool pays a fixed structure cost (ledger,
+epoch cond, wave one-hot regen) and then only live lanes."""
 
 AD_ENGINE_AUTO_DEPTH_RR = 28
-"""The same crossover with rr_terminate=True (round 4): RR kills
-dead-weight continuations, which shortens the POOL's drain but saves
-the fixed-trip scan nothing, so the pool wins earlier. Measured
-(docs/AD_DEPTH_SWEEP_RR_r04.json, same config, rr arms both sides):
-0.66x at depth 16, 0.89 at 24, 1.12 at 32, 1.26 at 40 -- breakeven
-~28."""
+"""The same crossover with rr_terminate=True: RR shortens the POOL's
+drain but saves the fixed-trip scan nothing, so the pool wins earlier.
+Not measured on the GPU (ROADMAP queues it)."""
 
 
 def resolve_ad_engine(max_depth: int, rr_terminate: bool = False) -> str:
     """'auto' policy: planar scan at low depth, regenerative pool past
-    the measured crossover (AD_ENGINE_AUTO_DEPTH, or the lower
+    the crossover (AD_ENGINE_AUTO_DEPTH, or the lower
     AD_ENGINE_AUTO_DEPTH_RR when the estimator terminates paths)."""
     cut = AD_ENGINE_AUTO_DEPTH_RR if rr_terminate else AD_ENGINE_AUTO_DEPTH
     return "wavefront" if max_depth > cut else "planar"

@@ -1,8 +1,8 @@
 """Multi-chip / multi-host parallelism.
 
 The reference has NO distributed layer at all (SURVEY section 2 parallelism
-table: single process, single GPU, Thrust H2D/D2H only). This package is the
-capability the TPU build *adds* per the BASELINE north star:
+table: single process, single GPU, Thrust H2D/D2H only). This package adds
+it:
 
   - ``mesh``: 1-D device mesh over the flattened pixel/ray axis; forward
     rendering is embarrassingly parallel (zero collectives); parameter
@@ -12,8 +12,8 @@ capability the TPU build *adds* per the BASELINE north star:
     (jax.distributed.initialize) + host-0 framebuffer gather.
 
 Shard-invariance contract: every random draw is keyed only by global
-(pixel, sample, bounce) ids (ops/rng.py), so a 1-chip and an N-chip render
-of the same config are bitwise identical.
+(pixel, sample, bounce) ids (ops/rng.py), so a 1-device and an N-device
+render of the same config agree up to float accumulation order.
 """
 
 from .mesh import (make_mesh, render_sharded, render_image_sharded,  # noqa: F401

@@ -1,9 +1,9 @@
 """Multi-host bring-up and host-0 image gather.
 
 The reference is single-process/single-GPU (SURVEY section 5 "distributed
-communication backend: absent"); this module is the added TPU-native
-capability: `jax.distributed.initialize` for the process group, a global
-1-D mesh over every chip in the slice, and a framebuffer gather to host 0
+communication backend: absent"); this module adds it:
+`jax.distributed.initialize` for the process group, a global 1-D mesh
+over every device of every process, and a framebuffer gather to host 0
 for image writing (the analogue of the reference's one D2H copy,
 cuda_impl.cu:452 -- here it is the only cross-host data movement in the
 whole forward path).
@@ -20,8 +20,9 @@ def initialize_distributed(coordinator_address: str | None = None,
                            process_id: int | None = None) -> None:
     """Initialize the multi-host process group.
 
-    On TPU pods all three arguments are auto-detected from the runtime
-    environment; pass them explicitly only for CPU/GPU multi-process tests.
+    Pass all three arguments: nothing on a plain GPU host tells JAX of a
+    cluster (the coordinator is ``host:port`` of process 0, e.g.
+    ``localhost:<free port>`` on one machine).
     Safe to call once per process, before any jax computation.
     """
     kwargs = {}

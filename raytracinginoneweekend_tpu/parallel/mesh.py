@@ -1,11 +1,11 @@
 """Device-mesh sharding of the ray wavefront.
 
-TPU-native replacement for the reference's single-GPU `thrust::transform`
-launch (cuda_impl.cu:437-440, SURVEY #21): the flattened pixel axis is
-sharded over a 1-D `jax.sharding.Mesh` spanning every chip (and every host,
-when `jax.distributed` is initialized), scene/camera parameters are
-replicated, and each chip traces its pixel shard with the exact same
-wavefront program a single chip runs.
+The multi-device counterpart of the reference's single-GPU
+`thrust::transform` launch (cuda_impl.cu:437-440, SURVEY #21): the
+flattened pixel axis is sharded over a 1-D `jax.sharding.Mesh` spanning
+every device (and every host, when `jax.distributed` is initialized),
+scene/camera parameters are replicated, and each device traces its pixel
+shard with the exact same wavefront program a single device runs.
 
 Why shard_map (not just jit-with-sharding): the render is embarrassingly
 parallel over pixels, so we want XLA to see the *per-shard* program with no
@@ -25,10 +25,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    _shard_map_raw = jax.shard_map
-except AttributeError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_raw
+from ..config import POOL_SIZE, RenderConfig, TraceOptions
+from ..models.camera import Camera
+from ..models.scene import Scene
+from ..ops.wavefront import wavefront_fb
+from ..render import render_pixels_impl
 
 
 def shard_map(f, *, mesh, in_specs, out_specs):
@@ -41,19 +42,9 @@ def shard_map(f, *, mesh, in_specs, out_specs):
     the transpose conservatively psums replicated-input cotangents, which
     is exactly the parameter all-reduce we want.
     """
-    try:
-        return _shard_map_raw(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - older kwarg name
-        return _shard_map_raw(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_rep=False)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
-from ..config import RenderConfig, TraceOptions
-from ..models.camera import Camera
-from ..models.scene import Scene
-from ..ops.wavefront import wavefront_fb
-from ..ops.wavefront_dual import SECONDARY_COPIES, wavefront_dual_fb
-from ..render import render_pixels_impl
 
 AXIS = "rays"
 
@@ -61,10 +52,10 @@ AXIS = "rays"
 def make_mesh(devices=None, axis_name: str = AXIS) -> Mesh:
     """1-D mesh over all (global) devices.
 
-    Rendering needs only one logical axis -- the flattened pixel/ray axis --
-    regardless of the physical topology; XLA maps the 1-D logical mesh onto
-    the physical ICI torus itself (and there is no forward communication to
-    lay out anyway).
+    Rendering needs only one logical axis -- the flattened pixel/ray axis.
+    The GPUs of one host are joined all to all (NVLink), so no device
+    order is better than another, and the forward pass has no
+    communication to lay out anyway.
     """
     if devices is None:
         devices = jax.devices()
@@ -149,7 +140,7 @@ def render_wavefront_sharded(scene: Scene, cam: Camera, base_key, *,
                              mesh: Mesh, width: int, height: int, spp: int,
                              max_depth: int, camera_mode: str,
                              options: TraceOptions,
-                             pool_size: int = 1 << 15,
+                             pool_size: int = POOL_SIZE,
                              reserve_frac: float | None = None):
     """Multi-chip wavefront render -> (H*W, 3) linear radiance means.
 
@@ -172,39 +163,6 @@ def render_wavefront_sharded(scene: Scene, cam: Camera, base_key, *,
             max_depth=max_depth, camera_mode=camera_mode, options=options,
             pool_size=pool_size, worker_index=d, n_workers=n_dev,
             reserve_frac=reserve_frac)
-        return jax.lax.psum(fb, AXIS)
-
-    sharded = shard_map(shard_fn, mesh=mesh, in_specs=(P(), P(), P()),
-                        out_specs=P())
-    return sharded(scene, cam, base_key) / spp
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "width", "height", "spp", "max_depth",
-                     "camera_mode", "options", "pool_size", "k_s"))
-def render_wavefront_dual_sharded(scene: Scene, cam: Camera, base_key, *,
-                                  mesh: Mesh, width: int, height: int,
-                                  spp: int, max_depth: int,
-                                  camera_mode: str, options: TraceOptions,
-                                  pool_size: int = 1 << 15,
-                                  k_s: int = SECONDARY_COPIES):
-    """Multi-chip dual-pool wavefront render -> (H*W, 3) radiance means.
-
-    Identical communication structure to render_wavefront_sharded (zero
-    forward collectives + one final framebuffer psum); each device runs
-    an independent dual-pool loop over a strided task subset.
-    pool_size is the PER-DEVICE total lane budget across both pools.
-    """
-    n_dev = mesh.size
-
-    def shard_fn(scene, cam, key):
-        d = jax.lax.axis_index(AXIS)
-        fb = wavefront_dual_fb(
-            scene, cam, key, width=width, height=height, spp=spp,
-            max_depth=max_depth, camera_mode=camera_mode, options=options,
-            pool_size=pool_size, k_s=k_s, worker_index=d,
-            n_workers=n_dev)
         return jax.lax.psum(fb, AXIS)
 
     sharded = shard_map(shard_fn, mesh=mesh, in_specs=(P(), P(), P()),

@@ -1,6 +1,6 @@
 """High-level renderer: camera-ray generation + wavefront trace + tiling.
 
-This is the TPU replacement for both launchers (SURVEY #19/#20/#21):
+This replaces both of the reference's launchers (SURVEY #19/#20/#21):
   - CPU nested pixel loops + per-pixel sample buffer (main.cxx:185-215)
   - CUDA host launcher + thrust::transform over pixels (cuda_impl.cu:384-453)
 

@@ -6,7 +6,7 @@ keys render (a) adaptive (spp_base 8, default tiers -> avg ~12 spp) and
 (b) uniform at the SAME average budget (rounded UP, against adaptive).
 Reports the MSE ratio; < 1 means adaptive wins at equal samples.
 
-CPU-runnable (estimator property); pass --tpu to run on the chip.
+CPU-runnable (an estimator property, the same on any device).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Variance A/B for sampling='stratified' vs 'iid' (+ TPU speed cost).
+"""Variance A/B for sampling='stratified' vs 'iid' (+ GPU speed cost).
 
 Per-pixel variance across independent keys. Rows cover the AA-dominated
 (pinhole), the cover (huge/thinlens), and a defocus-DOMINATED
@@ -7,9 +7,9 @@ Per-pixel variance across independent keys. Rows cover the AA-dominated
 stratification (rng.stratify_lens_uv) targets.
 
 Variance is an estimator property -- measured on CPU by default
-(device-independent); run on TPU for the speed-cost block only.
+(device-independent); run on a GPU for the speed-cost block only.
 
-Usage: python scripts/bench_stratified.py [--tpu-cost]
+Usage: python scripts/bench_stratified.py [--gpu-cost]
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def row(label, scene, cam, camera_mode, w, h, depth=8):
 
 
 def main():
-    if "--tpu-cost" in sys.argv:
+    if "--gpu-cost" in sys.argv:
         from raytracinginoneweekend_tpu.utils.compilecache import (
             enable_persistent_cache)
         from raytracinginoneweekend_tpu.utils.timing import time_fn
@@ -71,9 +71,9 @@ def main():
                 options=o), warmup=1, iters=3)
             out[smp] = 1200 * 800 * 100 / sec
         out["cost_frac"] = 1.0 - out["stratified"] / out["iid"]
-        print(json.dumps({"metric": "stratified_tpu_speed_cost",
+        print(json.dumps({"metric": "stratified_gpu_speed_cost",
                           "rays_per_s": out,
-                          "device": jax.devices()[0].platform}))
+                          "device": jax.devices()[0].device_kind}))
         return
 
     w, h = 48, 32

@@ -1,7 +1,6 @@
 #!/bin/sh
-# Pre-snapshot gate (VERDICT r4 #8): the round-4 regression shipped
-# because the final commit was swept in without the ~10-minute full
-# tier. This ritual runs `./run_tests.sh --full` and records the tally,
+# Pre-snapshot gate: a green fast tier must not be mistaken for the
+# full one. This ritual runs `./run_tests.sh --full` and records the tally,
 # the HEAD it ran at, and whether the tree was dirty to
 # docs/TESTS_r${ROUND}.json -- commit that artifact WITH the snapshot so
 # the snapshot provably follows a green full-tier run.

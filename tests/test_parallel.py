@@ -116,7 +116,7 @@ def test_tile_ownership_shard_invariant():
     from raytracinginoneweekend_tpu.parallel.mesh import (
         render_wavefront_sharded)
 
-    o = dataclasses.replace(DEFAULT, ownership="tile", hit_kernel="sorted")
+    o = dataclasses.replace(DEFAULT, ownership="tile")
     scene = huge_scene(0)
     w, h = 36, 20
     cam = reference_cpu_camera(w, h)

@@ -211,27 +211,19 @@ def test_stratified_sampling_unbiased_and_engine_invariant():
               camera_mode="thinlens")
     a = np.asarray(render_wavefront(scene, cam, key, options=strat,
                                     pool_size=2048, **kw))
-    b = np.asarray(render_wavefront(
-        scene, cam, key, options=dataclasses.replace(strat, mega="off"),
-        pool_size=2048, **kw))
-    np.testing.assert_array_equal(a, b)  # in-kernel == XLA remap
-    # Tile ownership: the in-kernel vp_to_pid de-swizzle must feed the
-    # SAME pid into the first-bounce stratification as the XLA body's
-    # task_pixel -- bit-equal fused vs XLA again under ownership="tile".
+    # Tile ownership: the tile de-swizzle must feed the SAME pid into
+    # the first-bounce stratification as the strided task_pixel.
     t_opts = dataclasses.replace(strat, ownership="tile")
     at = np.asarray(render_wavefront(scene, cam, key, options=t_opts,
                                      pool_size=2048, **kw))
-    bt = np.asarray(render_wavefront(
-        scene, cam, key, options=dataclasses.replace(t_opts, mega="off"),
-        pool_size=2048, **kw))
-    np.testing.assert_array_equal(at, bt)
+    np.testing.assert_array_equal(a, at)
     ids = jnp.arange(w * h, dtype=jnp.int32)
     c = np.asarray(render_pixels(scene, cam, ids, key, wave_spp=spp,
                                  options=strat, **kw))
     # The tiled engine shares the stratified jitter+lens remap
-    # bit-exactly (checked directly for the remap) but uses a DIFFERENT
-    # closest-hit implementation (jnp t-space vs the Pallas q-space
-    # kernel): this particular stratified ray set includes a handful of
+    # bit-exactly (checked directly for the remap), but its closest hit
+    # is another program (on the GPU the wavefront runs the q-space
+    # kernel): a stratified ray set can include a handful of
     # knife-edge candidates whose winner flips between the two, each
     # worth one sample's radiance difference (measured up to ~0.51/spp
     # with the lens dimension stratified; a flipped path is bounded by
@@ -314,11 +306,8 @@ def test_strat0_scatter_consistency_and_guard():
     (planar.strat0_scatter_planes) produce bit-identical vectors --
     the cross-engine contract; (b) for one pixel the spp de-rotated
     bounce-0 thetas cover every stratum exactly once (the substitution
-    is ACTIVE, not silently skipped); (c) mega='bounce' refuses
-    sampling='stratified' (its kernel state cannot honor the
-    first-bounce half)."""
-    import dataclasses
-
+    is ACTIVE, not silently skipped); (c) an unknown sampling mode is
+    refused."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -359,7 +348,6 @@ def test_strat0_scatter_consistency_and_guard():
     strata = np.sort(np.floor(((u - float(rot_u)) % 1.0) * spp))
     np.testing.assert_array_equal(strata, np.arange(spp))
 
-    with _pytest.raises(ValueError, match="mega='bounce'"):
-        dataclasses.replace(TraceOptions(), sampling="stratified",
-                            mega="bounce")
+    with _pytest.raises(ValueError, match="sampling"):
+        TraceOptions(sampling="sobol")
     assert DEFAULT.sampling == "iid"  # parity default untouched

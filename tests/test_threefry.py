@@ -2,8 +2,8 @@
 
 The renderer's whole reproducibility story (shard invariance, engine
 invariance, oracle parity) rests on every engine drawing the same bits;
-the in-kernel RNG (ops/pallas_segment.py) uses this reimplementation,
-so these tests pin it to jax.random exactly.
+the planar engines draw through this reimplementation, so these tests
+pin it to jax.random exactly.
 """
 
 import jax

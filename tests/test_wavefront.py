@@ -75,7 +75,8 @@ def test_wavefront_deposit_modes_and_slots_match():
 
 def test_rr_termination_unbiased_and_saves_segments():
     """Opt-in Russian-roulette path termination (TraceOptions.rr_*):
-    (a) the fused kernel and the XLA fallback draw/act identically,
+    (a) the engine with and without its occupancy counters draws/acts
+    identically,
     (b) traced segments drop materially, (c) the estimator stays
     unbiased -- global image mean within MC noise of the baseline
     (measured: 23.6% fewer segments, mean delta 0.0007 at spp 128)."""
@@ -90,7 +91,7 @@ def test_rr_termination_unbiased_and_saves_segments():
     # rr_scale pinned at 1.0: this test measures the AGGRESSIVE
     # q = attenuation ablation (the 23.6%-fewer-segments figure); the
     # shipped default rr_scale=4.0 trades most of that saving for
-    # near-zero variance inflation (docs/RR_EFFICIENCY_r03.jsonl).
+    # near-zero variance inflation.
     rr = dataclasses.replace(DEFAULT, rr_terminate=True, rr_start=2,
                              rr_qmin=0.05, rr_scale=1.0)
 
@@ -98,10 +99,9 @@ def test_rr_termination_unbiased_and_saves_segments():
                                 return_stats=True, **kw)
     img_rr, sr = render_wavefront(scene, cam, key, options=rr,
                                   return_stats=True, **kw)
-    img_xla = render_wavefront(
-        scene, cam, key, options=dataclasses.replace(rr, mega="off"), **kw)
-    base, img_rr, img_xla = map(np.asarray, (base, img_rr, img_xla))
-    np.testing.assert_allclose(img_rr, img_xla, rtol=2e-4, atol=2e-5)
+    img_plain = render_wavefront(scene, cam, key, options=rr, **kw)
+    base, img_rr, img_plain = map(np.asarray, (base, img_rr, img_plain))
+    np.testing.assert_allclose(img_rr, img_plain, rtol=2e-4, atol=2e-5)
     assert int(sr["segments"]) < 0.9 * int(sb["segments"])
     assert np.isfinite(img_rr).all()
     assert abs(float(img_rr.mean()) - float(base.mean())) < 5e-3
@@ -182,35 +182,33 @@ def test_wavefront_edge_shapes():
 @pytest.mark.parametrize("camera_mode", ["cuda", "pinhole", "cpu",
                                          "thinlens"])
 def test_wavefront_mega_modes_match(camera_mode):
-    """The three engine fusion levels -- "off" (closest-hit kernel + XLA
-    fusions), "bounce" (whole-bounce program, ops/pallas_mega.py) and
-    "fused" (rotated shade+regen program, ops/pallas_fused.py) -- share
-    the RNG contract and the shade math, so they must agree. Tight
-    tolerance (not bitwise: compilers may contract FMAs differently
-    between the lowerings)."""
-    import dataclasses
-
+    """Every camera mode through the wavefront engine matches the tiled
+    engine: same RNG contract and shade math, so images agree to float
+    reassociation (the engines accumulate samples in another order, and
+    build camera rays in separate planar / (N, 3) programs). A path
+    through the huge scene's glass can magnify that last-bit difference,
+    so -- like the stratified cross-engine check in test_render.py --
+    the tight tolerance holds on 99% of the values and the image means
+    agree."""
     key = jax.random.key(7)
     for scene, cam, w, h in (
             (simple_scene_cuda(), reference_cuda_camera(20, 12), 20, 12),
             (huge_scene(0), reference_cpu_camera(16, 10), 16, 10)):
-        kwargs = dict(width=w, height=h, spp=2, max_depth=6,
-                      camera_mode=camera_mode, pool_size=1 << 12)
-        imgs = [np.asarray(render_wavefront(
-            scene, cam, key,
-            options=dataclasses.replace(DEFAULT, mega=mode), **kwargs))
-            for mode in ("off", "bounce", "fused")]
-        np.testing.assert_allclose(imgs[1], imgs[0], rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(imgs[2], imgs[0], rtol=1e-5, atol=1e-6)
+        cfg = RenderConfig(width=w, height=h, spp=2, max_depth=6,
+                           camera_mode=camera_mode, options=DEFAULT)
+        want = np.asarray(render(scene, cam, cfg, key)).reshape(-1, 3)
+        got = np.asarray(render_wavefront(
+            scene, cam, key, width=w, height=h, spp=2, max_depth=6,
+            camera_mode=camera_mode, options=DEFAULT, pool_size=1 << 12))
+        close = np.isclose(got, want, rtol=2e-4, atol=2e-5)
+        assert close.mean() >= 0.99, close.mean()
+        assert abs(got.mean() - want.mean()) < 1e-4
 
 
 def test_wavefront_reference_cpu_compat_matches_tiled():
-    """REFERENCE_CPU semantics (ball scatter -> the in-kernel cube root,
-    cpu sky bias, reference refract) + the quirky "cpu" camera mode,
-    through the wavefront engine at every fusion level, vs the tiled
-    renderer."""
-    import dataclasses
-
+    """REFERENCE_CPU semantics (ball scatter's cube root, cpu sky bias,
+    reference refract) + the quirky "cpu" camera mode, through the
+    wavefront engine, vs the tiled renderer."""
     from raytracinginoneweekend_tpu.config import REFERENCE_CPU
 
     w, h, spp, depth = 16, 12, 2, 4
@@ -220,14 +218,10 @@ def test_wavefront_reference_cpu_compat_matches_tiled():
     cfg = RenderConfig(width=w, height=h, spp=spp, max_depth=depth,
                        camera_mode="cpu", options=REFERENCE_CPU)
     want = np.asarray(render(scene, cam, cfg, key)).reshape(-1, 3)
-    for mode in ("off", "bounce", "fused"):
-        got = np.asarray(render_wavefront(
-            scene, cam, key, width=w, height=h, spp=spp, max_depth=depth,
-            camera_mode="cpu",
-            options=dataclasses.replace(REFERENCE_CPU, mega=mode),
-            pool_size=256))
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5,
-                                   err_msg=f"mega={mode}")
+    got = np.asarray(render_wavefront(
+        scene, cam, key, width=w, height=h, spp=spp, max_depth=depth,
+        camera_mode="cpu", options=REFERENCE_CPU, pool_size=256))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
 def test_wavefront_ray_id_overflow_guard():
@@ -241,39 +235,12 @@ def test_wavefront_ray_id_overflow_guard():
                          camera_mode="pinhole", options=DEFAULT)
 
 
-def test_wavefront_hit_kernel_mxu_matches():
-    """options.hit_kernel='mxu' (sphere-minor MXU closest hit) must render
-    the same image as the sublane kernel except where a knife-edge
-    candidate resolves differently under the regrouped-dot f32 rounding:
-    those paths diverge entirely, so (like the golden-oracle suite) a
-    <=1% pixel outlier budget applies and everything else is tight."""
-    import dataclasses
-
-    w, h, spp, depth = 24, 16, 4, 6
-    scene = huge_scene(0)
-    cam = reference_cpu_camera(w, h)
-    key = jax.random.key(7)
-    kwargs = dict(width=w, height=h, spp=spp, max_depth=depth,
-                  camera_mode="thinlens", pool_size=1 << 12)
-    for mega in ("fused", "off"):
-        base = dataclasses.replace(DEFAULT, mega=mega)
-        a = np.asarray(render_wavefront(scene, cam, key, **kwargs,
-                                        options=base))
-        b = np.asarray(render_wavefront(
-            scene, cam, key, **kwargs,
-            options=dataclasses.replace(base, hit_kernel="mxu")))
-        err = np.abs(a - b) / (np.abs(a) + 1e-3)
-        outliers = (err.max(axis=-1) > 1e-3).mean()
-        assert outliers <= 0.01, (mega, outliers, err.max())
-
-
 def test_tile_ownership_images_bit_identical():
-    """ownership='tile' (block-contiguous tile-swizzled task ownership,
-    the coherence layout for hit_kernel='sorted') must reproduce the
-    strided engine's image BIT-exactly on both scenes, across the fused
-    and XLA bodies, the sorted kernel, the scatter-deposit fallback and
-    the stats path -- the RNG contract keys by (pixel, sample), so only
-    the task->lane mapping moves, and the ledger fold sums each pixel's
+    """ownership='tile' (block-contiguous tile-swizzled task ownership)
+    must reproduce the strided engine's image BIT-exactly on both
+    scenes, through the ledger, the scatter-deposit fallback and the
+    stats path -- the RNG contract keys by (pixel, sample), so only the
+    task->lane mapping moves, and the ledger fold sums each pixel's
     tasks in the same order."""
     import dataclasses
 
@@ -290,14 +257,10 @@ def test_tile_ownership_images_bit_identical():
         base = np.asarray(render_wavefront(scene, cam, key, options=DEFAULT,
                                            **kw))
         assert np.isfinite(base).all() and base.max() > 0.05
-        for mega, hk in (("off", "sublane"), ("fused", "sublane"),
-                         ("fused", "sorted")):
-            o = dataclasses.replace(DEFAULT, ownership="tile", mega=mega,
-                                    hit_kernel=hk)
-            got = np.asarray(render_wavefront(scene, cam, key, options=o,
-                                              **kw))
-            np.testing.assert_array_equal(base, got, err_msg=f"{mega}/{hk}")
         o = dataclasses.replace(DEFAULT, ownership="tile")
+        got = np.asarray(render_wavefront(scene, cam, key, options=o,
+                                          **kw))
+        np.testing.assert_array_equal(base, got, err_msg="ledger")
         got = np.asarray(render_wavefront(scene, cam, key, options=o,
                                           deposit="scatter", **kw))
         np.testing.assert_array_equal(base, got, err_msg="scatter")
@@ -307,40 +270,13 @@ def test_tile_ownership_images_bit_identical():
         assert int(st["segments"]) > 0
 
 
-def test_resolve_variants_bit_identical():
-    """All winning-sphere resolve variants are EXACT gathers (one nonzero
-    0/1 term per one-hot row against an f32 table), so 'split' (factorized
-    lo-matmul + hi-select) and 'f32' (one-hot kept in f32, no bf16
-    convert) must reproduce the default's image bit-exactly. Both ship as
-    documented perf ablations (ARCHITECTURE.md 'Resolve phase closure');
-    this pins their correctness."""
-    import dataclasses
-
-    from raytracinginoneweekend_tpu.models.scene import simple_scene_cuda
-
-    for scene, w, h in ((simple_scene_cuda(), 32, 20), (huge_scene(0),
-                                                        28, 16)):
-        cam = reference_cpu_camera(w, h)
-        key = jax.random.key(3)
-        kw = dict(width=w, height=h, spp=4, max_depth=6,
-                  camera_mode="thinlens", pool_size=2048)
-        base = np.asarray(render_wavefront(scene, cam, key, options=DEFAULT,
-                                           **kw))
-        assert np.isfinite(base).all() and base.max() > 0.05
-        for resolve in ("split", "f32"):
-            o = dataclasses.replace(DEFAULT, resolve=resolve)
-            got = np.asarray(render_wavefront(scene, cam, key, options=o,
-                                              **kw))
-            np.testing.assert_array_equal(base, got, err_msg=resolve)
-
-
 def test_reserve_tail_stealing_matches_default():
     """reserve_frac withholds the task-space tail and grants it to
     exhausted-idle lanes at epoch boundaries (round 4): images must
     match the reserve-off engine to accumulation order, with every
     reserve task rendered exactly once (the mean over a bright scene
-    catches drops/doubles), across deposit modes, fusion levels, rr,
-    and multi-sample tasks (spp > task_samples exercises per-pixel
+    catches drops/doubles), across deposit modes, rr, stratified
+    sampling, and multi-sample tasks (spp > task_samples exercises per-pixel
     fold ordering with the scatter-accumulated reserve)."""
     import dataclasses
 
@@ -361,7 +297,7 @@ def test_reserve_tail_stealing_matches_default():
                                           **kw, **extra))
         np.testing.assert_allclose(base, got, rtol=2e-6, atol=2e-6,
                                    err_msg=label)
-    for opts in (dataclasses.replace(DEFAULT, mega="off"),
+    for opts in (dataclasses.replace(DEFAULT, sampling="stratified"),
                  dataclasses.replace(DEFAULT, rr_terminate=True)):
         a = np.asarray(render_wavefront(scene, cam, key, options=opts,
                                         **kw))
@@ -377,9 +313,8 @@ def test_reserve_tail_stealing_matches_default():
 
 
 def test_wall_scene_engines_agree():
-    """models/scene.wall_scene (the depth-bounded demonstration workload
-    for hit_kernel='sorted' + ownership='tile', scripts/bench_wall.py):
-    the sorted/tile combos must reproduce the sublane/strided image
+    """models/scene.wall_scene (a depth-bounded wall of spheres seen
+    head-on): tile ownership must reproduce the strided image
     bit-exactly on it, same gate as the huge/simple parity tests."""
     import dataclasses
 
@@ -398,9 +333,6 @@ def test_wall_scene_engines_agree():
     base = np.asarray(render_wavefront(scene, cam, key, options=DEFAULT,
                                        **kw))
     assert np.isfinite(base).all() and base.max() > 0.05
-    for hk, own in (("sublane", "tile"), ("sorted", "strided"),
-                    ("sorted", "tile")):
-        o = dataclasses.replace(DEFAULT, hit_kernel=hk, ownership=own)
-        got = np.asarray(render_wavefront(scene, cam, key, options=o,
-                                          **kw))
-        np.testing.assert_array_equal(base, got, err_msg=f"{hk}/{own}")
+    o = dataclasses.replace(DEFAULT, ownership="tile")
+    got = np.asarray(render_wavefront(scene, cam, key, options=o, **kw))
+    np.testing.assert_array_equal(base, got)

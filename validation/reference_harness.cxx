@@ -5,7 +5,7 @@
 // apply_material, camera.hxx's camera, math.hxx -- and reproduces the
 // reference CPU render loop (main.cxx:185-215) sequentially (avoiding the
 // R1 shared-generator data race so the output is deterministic per seed).
-// The TPU renderer's statistical-parity test (tests/test_reference_parity
+// This renderer's statistical-parity test (tests/test_reference_parity
 // .py) compares its image against this binary's output: the two use
 // different RNGs, so agreement is asserted on converged means at high spp
 // -- exactly the "validate allclose against the reference C++ renderer"
